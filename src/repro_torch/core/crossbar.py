@@ -1,4 +1,4 @@
-"""Memristor-crossbar layer, recognition half (port of ``repro.core.crossbar``).
+"""Memristor-crossbar layer (port of ``repro.core.crossbar``).
 
 A crossbar layer models one (possibly tiled) layer of the paper's neural
 core:
@@ -8,14 +8,18 @@ core:
   * the activation is the op-amp hard-sigmoid ``h(x) = clip(x/4, -0.5, 0.5)``
     (Eq. 3 / Fig. 6),
   * inputs arriving over the routing network are 3-bit ADC codes (section
-    IV.A),
+    IV.A), modeled as fixed-range fake-quant with STE,
+  * backpropagated errors are 8-bit sign-magnitude (section III.F step 1) and
+    travel through the *same* weights (Eq. 7 / Fig. 9) — modeled with a
+    ``torch.autograd.Function`` whose backward quantizes the incoming error
+    before the transpose product,
   * layers larger than a core (400 inputs x 100 neurons) are split across
     tiles; fan-in splits follow Fig. 14 (sub-neurons plus an aggregation
     stage).
 
-This slice ports the forward half.  The reference's custom-VJP
-``_xbar_matmul``, ``paper_backprop_step(_scan)`` and ``stack_layers`` belong
-to the training slice (ROADMAP Queue 1).
+The paper's manual training rule (``paper_backprop_step``, and the stacked
+``paper_backprop_step_scan`` on the kernels) updates the conductances with
+pulse-discretized outer products (section III.F).
 """
 from __future__ import annotations
 
@@ -104,11 +108,47 @@ def init_conductances(fan_in: int, fan_out: int, spec: CrossbarSpec, *,
 
 
 # ---------------------------------------------------------------------------
-# The layer (forward)
+# Forward/backward with transport quantization (custom autograd)
+# ---------------------------------------------------------------------------
+
+class _XbarMatmul(torch.autograd.Function):
+    """y = x @ (g+ - g-); the backward quantizes the incoming error to
+    ``spec.err_bits`` sign-magnitude codes before the transpose product."""
+
+    @staticmethod
+    def forward(ctx, x, g_plus, g_minus, spec):
+        w = reconstruct(g_plus, g_minus)
+        ctx.save_for_backward(x, w)
+        ctx.spec = spec
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if ctx.spec.error_quant:
+            # Paper III.F step 1: errors discretized to 8 bits before being
+            # driven back through the crossbar columns (Fig. 9).
+            dy = q.error_quantize(dy, ctx.spec.err_bits).dequantize()
+        dx = dy @ w.T                     # Eq. 7: delta_prev = W^T delta
+        dw = torch.einsum("...i,...j->ij", x, dy)   # Eq. 6, batch-summed
+        # d/dg_plus = +dw, d/dg_minus = -dw: the two columns move
+        # oppositely, matching the +dw/2 / -dw/2 hardware update.
+        return dx, dw, -dw, None
+
+
+def _xbar_matmul(x: torch.Tensor, g_plus: torch.Tensor,
+                 g_minus: torch.Tensor, spec: CrossbarSpec) -> torch.Tensor:
+    """x @ (g+ - g-) with the 8-bit error transport in its backward."""
+    return _XbarMatmul.apply(x, g_plus, g_minus, spec)
+
+
+# ---------------------------------------------------------------------------
+# The layer
 # ---------------------------------------------------------------------------
 
 def crossbar_apply(params: dict[str, torch.Tensor], x: torch.Tensor,
                    spec: CrossbarSpec, *, activation: bool = True,
+                   use_kernel: bool = False,
                    transport_in: bool = True) -> torch.Tensor:
     """Apply one crossbar layer: y = h( (ADC(x)) @ (g+ - g-) ).
 
@@ -118,11 +158,25 @@ def crossbar_apply(params: dict[str, torch.Tensor], x: torch.Tensor,
     fan-in tile first.  ``transport_in=False`` marks the network's own
     input, driven through the DAC (section IV.A quantizes neuron outputs,
     not network inputs).
+
+    ``use_kernel=True`` routes through the differentiable kernel path
+    (``kernels/ops.crossbar_matmul``): forward, error backprop (8-bit codes
+    dequantized in the kernel) and the weight outer product all run as
+    kernels under ``torch.autograd``.
     """
     gp, gm = params["g_plus"], params["g_minus"]
     fan_in = gp.shape[0]
     if spec.transport_quant and transport_in:
         x = q.adc_quantize_ste(x, spec.adc_bits)
+    # Fig.-14 sub-neuron mode changes the network function per fan-in tile;
+    # the kernels implement exact aggregation only, so split stacks fall
+    # through to the reference path rather than compute a different model.
+    if use_kernel and not (spec.split_activation and fan_in > spec.rows):
+        from repro_torch.kernels import ops as kernel_ops
+        dp = kernel_ops.crossbar_matmul(x, gp, gm,
+                                        error_quant=spec.error_quant,
+                                        err_bits=spec.err_bits)
+        return hard_sigmoid(dp) if activation else dp
     if spec.split_activation and fan_in > spec.rows:
         n_tiles = math.ceil(fan_in / spec.rows)
         pad = n_tiles * spec.rows - fan_in
@@ -139,7 +193,7 @@ def crossbar_apply(params: dict[str, torch.Tensor], x: torch.Tensor,
             sub = q.adc_quantize_ste(sub, spec.adc_bits)
         dp = sub.sum(dim=-2) * 4.0  # aggregation neuron with unit weights
     else:
-        dp = x @ reconstruct(gp, gm)
+        dp = _xbar_matmul(x, gp, gm, spec)
     return hard_sigmoid(dp) if activation else dp
 
 
@@ -181,3 +235,157 @@ def mlp_forward(layers: list[dict[str, torch.Tensor]], x, spec: CrossbarSpec,
     for li, p in enumerate(layers):
         h = crossbar_apply(p, h, spec, transport_in=(li > 0))
     return h
+
+
+# ---------------------------------------------------------------------------
+# The paper's manual training rule (pulse-based update, section III.E/III.F)
+# ---------------------------------------------------------------------------
+
+def paper_backprop_step(layers: list[dict[str, torch.Tensor]],
+                        x: torch.Tensor, target: torch.Tensor,
+                        spec: CrossbarSpec, lr: float,
+                        generator: torch.Generator | None = None
+                        ) -> tuple[list[dict[str, torch.Tensor]],
+                                   torch.Tensor]:
+    """One stochastic-BP step exactly as the hardware executes it.
+
+    The literal Eq. 4-6 loop with transport/error/update quantization.
+    ``generator`` selects stochastic pulse rounding (the reference's
+    ``key``); ``None`` rounds to nearest.  Returns (updated_layers,
+    output_error).
+    """
+    # -- forward, recording per-layer inputs and DPs (III.F step 1).  Layer
+    # 0's input is the network input, driven through the DAC: only
+    # inter-core activations see the 3-bit output ADC (section IV.A).
+    acts = [x]
+    dps = []
+    h = x
+    for li, p in enumerate(layers):
+        if spec.transport_quant and li > 0:
+            h = q.adc_quantize_ste(h, spec.adc_bits)
+            acts[-1] = h
+        dp = h @ reconstruct(p["g_plus"], p["g_minus"])
+        dps.append(dp)
+        h = hard_sigmoid(dp)
+        acts.append(h)
+
+    # -- output error (Eq. 4)
+    delta = target - acts[-1]
+
+    new_layers = [dict(p) for p in layers]
+    for li in reversed(range(len(layers))):
+        p = layers[li]
+        w = reconstruct(p["g_plus"], p["g_minus"])
+        if spec.error_quant:
+            delta = q.error_quantize(delta, spec.err_bits).dequantize()
+        local = delta * hard_sigmoid_deriv(dps[li])      # delta_j * f'(DP_j)
+        dw = 2.0 * lr * torch.einsum("...i,...j->ij", acts[li], local)
+        if acts[li].dim() > 1:   # batched: average the per-sample updates
+            dw = dw / q._scalar(math.prod(acts[li].shape[:-1]), dw)
+        if spec.update_quant:
+            dw = q.pulse_discretize(dw, spec.max_update, spec.update_levels,
+                                    generator)
+        new_layers[li] = {
+            "g_plus": clip_conductance(p["g_plus"] + 0.5 * dw, spec),
+            "g_minus": clip_conductance(p["g_minus"] - 0.5 * dw, spec),
+        }
+        # back-propagate through this layer's weights (Eq. 5 / Fig. 9)
+        delta = local @ w.T
+    return new_layers, target - acts[-1]
+
+
+# ---------------------------------------------------------------------------
+# Stacked equal-shaped layers (the kernel hot loop)
+# ---------------------------------------------------------------------------
+
+def stack_layers(layers: list[dict[str, torch.Tensor]]
+                 ) -> dict[str, torch.Tensor]:
+    """Stack equal-shaped layer dicts into (L, fan_in, fan_out) buffers for
+    :func:`paper_backprop_step_scan`.  Raises if shapes are ragged (use the
+    per-layer ``paper_backprop_step`` for ragged stacks)."""
+    shapes = {tuple(p["g_plus"].shape) for p in layers}
+    if len(shapes) != 1:
+        raise ValueError(f"scan pipeline needs equal-shaped layers, got "
+                         f"{sorted(shapes)}")
+    return {"g_plus": torch.stack([p["g_plus"] for p in layers]),
+            "g_minus": torch.stack([p["g_minus"] for p in layers])}
+
+
+def unstack_layers(stacked: dict[str, torch.Tensor]
+                   ) -> list[dict[str, torch.Tensor]]:
+    """(L, fan_in, fan_out) buffers -> per-layer dicts (views)."""
+    L = stacked["g_plus"].shape[0]
+    return [{"g_plus": stacked["g_plus"][i],
+             "g_minus": stacked["g_minus"][i]} for i in range(L)]
+
+
+def paper_backprop_step_scan(stacked: dict[str, torch.Tensor],
+                             x: torch.Tensor, target: torch.Tensor,
+                             spec: CrossbarSpec, lr: float,
+                             use_kernel: bool = True
+                             ) -> tuple[dict[str, torch.Tensor],
+                                        torch.Tensor]:
+    """One stochastic-BP step over stacked equal-shaped layers.
+
+    Same semantics as :func:`paper_backprop_step` with deterministic pulse
+    rounding, ``lr`` divided by the batch before the product: a forward
+    loop recording per-layer inputs and DPs, then a reversed loop whose body
+    runs the bwd kernel (error transpose-product) and the pulse-update
+    kernel (or, with ``update_quant=False``, the dw kernel) per layer when
+    ``use_kernel``.  The stacked conductances are written IN PLACE
+    (``copy_``), the port's form of the reference's buffer donation; the
+    returned dict is ``stacked`` itself.
+    """
+    from repro_torch.kernels import ops as kernel_ops
+
+    batch = math.prod(x.shape[:-1]) if x.dim() > 1 else 1
+    lr_eff = lr / batch
+    layers = unstack_layers(stacked)
+
+    acts, dps = [], []
+    h = out = x
+    for p in layers:
+        if use_kernel:
+            dp = kernel_ops.crossbar_fwd(h, p["g_plus"], p["g_minus"],
+                                         activation=False)
+        else:
+            dp = h @ reconstruct(p["g_plus"], p["g_minus"])
+        acts.append(h)
+        dps.append(dp)
+        out = hard_sigmoid(dp)
+        # transport-quantize at the core boundary; the last layer's output
+        # goes to the training unit, not the network.
+        h = (q.adc_quantize_ste(out, spec.adc_bits)
+             if spec.transport_quant else out)
+    delta = target - out
+
+    for p, a, dp in zip(reversed(layers), reversed(acts), reversed(dps)):
+        if spec.error_quant:
+            delta = q.error_quantize(delta, spec.err_bits).dequantize()
+        local = delta * hard_sigmoid_deriv(dp)
+        if use_kernel:
+            if spec.update_quant:
+                gp, gm = kernel_ops.pulse_update(
+                    p["g_plus"], p["g_minus"], a, local, lr=lr_eff,
+                    max_dw=spec.max_update, levels=spec.update_levels,
+                    w_max=spec.w_max)
+            else:
+                # continuous (non-pulsed) update, outer product on-kernel
+                dw = 2.0 * lr_eff * kernel_ops.crossbar_dw(a, local)
+                gp = clip_conductance(p["g_plus"] + 0.5 * dw, spec)
+                gm = clip_conductance(p["g_minus"] - 0.5 * dw, spec)
+            delta_prev = kernel_ops.crossbar_bwd(local, p["g_plus"],
+                                                 p["g_minus"])
+        else:
+            dw = 2.0 * lr_eff * torch.einsum("...i,...j->ij", a, local)
+            if spec.update_quant:
+                dw = q.pulse_discretize(dw, spec.max_update,
+                                        spec.update_levels, None)
+            gp = clip_conductance(p["g_plus"] + 0.5 * dw, spec)
+            gm = clip_conductance(p["g_minus"] - 0.5 * dw, spec)
+            delta_prev = local @ reconstruct(p["g_plus"], p["g_minus"]).T
+        # the error has left through the old conductances: update in place
+        p["g_plus"].copy_(gp)
+        p["g_minus"].copy_(gm)
+        delta = delta_prev
+    return stacked, target - out

@@ -7,10 +7,12 @@ of the source and the flags: a fresh checkout builds at its first launch,
 an unchanged tree reuses the library.  Each library exposes a plain C
 interface and is loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  One library per source lets several sources build side by
-side.  Nothing here runs at import time.
+side: ``load_all`` starts one nvcc per source at once.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -80,3 +82,10 @@ def load(name: str) -> Library:
         build_s = time.perf_counter() - t0
     log = log_path.read_text() if log_path.exists() else ""
     return Library(ctypes.CDLL(str(path)), path, build_s, log)
+
+
+def load_all(names: list[str]) -> list[Library]:
+    """``load`` every source in ``names``, one nvcc per source, all started
+    together (each build waits in its own thread); raises if any fails."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(load, names))

@@ -1,18 +1,21 @@
-"""Virtual-chip CLI: run a paper application's recognition path on the
-simulated multicore grid, every stage through the hand-written CUDA kernel.
+"""Virtual-chip CLI: run a paper application on the simulated multicore
+grid, every stage's phase through a hand-written CUDA kernel.
 
   PYTHONPATH=src python -m repro_torch.launch.chipsim --app mnist_class
   PYTHONPATH=src python -m repro_torch.launch.chipsim --app kdd_anomaly \\
       --samples 16 --share-small-layers --json out.json
-  PYTHONPATH=src python -m repro_torch.launch.chipsim --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.chipsim --app mnist_class \\
+      --train-steps 3 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.chipsim --device cpu \\
+      --train-steps 2
 
-The recognition half of ``repro.launch.chipsim``: places the app's Table I
-network onto the simulated 400x100 core grid, streams samples through the
-pipelined stages, and prints time/energy/throughput from the *measured*
-simulator counters — including the cross-validation against
-`core/hw_model.py` (exits with an error above 1%) and the energy-vs-K20
-comparison.  Runs on ``--device cuda`` unless told otherwise.  Training
-steps and fault injection wait for later slices of the port.
+Port of ``repro.launch.chipsim``: places the app's Table I network onto the
+simulated 400x100 core grid, streams samples through the pipelined stages,
+runs ``--train-steps`` on-chip training steps (default 1), and prints
+time/energy/throughput from the *measured* simulator counters — including
+the cross-validation against `core/hw_model.py` (exits with an error above
+1%) and the energy-vs-K20 comparison.  Runs on ``--device cuda`` unless
+told otherwise.  Fault injection waits for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -48,8 +51,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--app", default="kdd_anomaly", choices=sorted(NETWORKS))
     ap.add_argument("--samples", type=int, default=8,
                     help="samples streamed through the recognition pipeline")
-    ap.add_argument("--train-steps", type=int, default=0,
-                    help="training steps (not ported yet: must be 0)")
+    ap.add_argument("--train-steps", type=int, default=1)
     ap.add_argument("--batch", type=int, default=1,
                     help="samples per training step")
     ap.add_argument("--lr", type=float, default=0.1)
@@ -66,9 +68,6 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.train_steps > 0:
-        raise SystemExit("--train-steps > 0: chip training is not ported "
-                         "yet (ROADMAP Queue 1 item 4, the training slice)")
     if args.stuck_on or args.stuck_off or args.variation_sigma:
         raise SystemExit("fault injection is not ported yet "
                          "(ROADMAP Queue 1 item 4)")
@@ -93,13 +92,23 @@ def main(argv: list[str] | None = None) -> None:
           f"{stream['throughput_sps']:.0f} samples/s steady-state "
           f"(occupancy {stream['occupancy']:.2f})")
 
+    for step in range(args.train_steps):
+        xb_ = (torch.rand((args.batch, dims[0]), generator=gen)
+               - 0.5).to(device)
+        tgt = (torch.rand((args.batch, dims[-1]), generator=gen)
+               - 0.5).to(device)
+        err = chip.train_step(xb_, tgt, lr=args.lr)
+        print(f" train step {step}: |err| {float(err.abs().mean()):.4f}")
+
     rep = chip.report()
     cost = hw.network_cost(args.app, dims,
                            share_small_layers=args.share_small_layers)
     cmp_ = rep.compare_hw(cost)
     gpu = rep.vs_gpu()
     print(f" measured: infer {rep.infer_time_us:.2f} us "
-          f"/ {rep.infer_total_j * 1e12:.1f} pJ per sample")
+          f"/ {rep.infer_total_j * 1e12:.1f} pJ per sample; "
+          f"train {rep.train_time_us:.2f} us "
+          f"/ {rep.train_total_j * 1e12:.1f} pJ per sample")
     print(f" cross-validation vs hw_model (rel err): "
           + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
     print(f" vs K20 (measured counters): "

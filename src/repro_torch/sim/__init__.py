@@ -4,12 +4,13 @@
 Modules:
   placer   NetworkMap + layer params -> stacked conductance tiles per stage
   noc      static routing schedule model, per-link cycle/bit counters (copy)
-  chip     VirtualChip: infer / pipelined streaming + counters
+  chip     VirtualChip: infer / pipelined streaming / train_step + counters
   report   SimReport: counters -> time/energy, hw_model cross-validation
            (copy)
 
-Each stage runs as ONE launch of the hand-written crossbar kernel over its
-core stack (plus one for a Fig.-14 aggregation stage).  The compiled
+Each stage's phase runs as ONE launch of a hand-written kernel over its
+core stack (the forward plus one for a Fig.-14 aggregation stage; the
+backward; the pulse update).  The compiled
 executor, StageStacks, faults, the farm and the pipeline fabric wait for
 later slices (ROADMAP Queue 1).
 """

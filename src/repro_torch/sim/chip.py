@@ -1,25 +1,29 @@
 """VirtualChip: execute networks on the simulated multicore grid.
 
-Port of ``repro.sim.chip``, recognition half.  A chip is a `Placement`
-(stacked per-core conductances, one stage per layer) plus counters; it
-runs:
+Port of ``repro.sim.chip`` (its eager per-stage path).  A chip is a
+`Placement` (stacked per-core conductances, one stage per layer) plus
+counters; it runs:
 
   * ``infer``        — one wave through the stages, serialized-latency
                        semantics (the analytic model's recognition pass);
   * ``infer_stream`` — pipelined streaming (Fig. 2): steady-state
                        throughput is one sample per beat = crossbar eval +
-                       one static routing slot (Table IV's 0.77 us).
+                       one static routing slot (Table IV's 0.77 us);
+  * ``train_step``   — the paper's three phases per layer (Table II):
+                       fwd (record inputs + DPs), bwd (8-bit errors through
+                       the same conductances), update (pulse-discretized
+                       outer product written into the stacks).
 
-Every stage executes as ONE launch of the hand-written crossbar kernel over
-its core stack (`kernels/ops.crossbar_fwd_stacked`); a Fig.-14 aggregation
-stage is one more launch inside its layer's time slot.  This is the
-reference's eager per-stage path; `infer` equals
-`core.crossbar.mlp_forward` and the counters reproduce `hw_model`'s
-analytic time/energy to <= 1%.
+Every stage executes as ONE launch of a hand-written kernel over its core
+stack: the forward through `kernels/ops.crossbar_fwd_stacked` (a Fig.-14
+aggregation stage is one more launch inside its layer's time slot), the
+backward through `crossbar_bwd_stacked` and the update through
+`pulse_update_stacked`.  `infer` equals `core.crossbar.mlp_forward`,
+`train_step` equals `core.crossbar.paper_backprop_step`, and the counters
+reproduce `hw_model`'s analytic time/energy to <= 1%.
 
-Not ported yet (ROADMAP Queue 1): ``train_step``/``backward_update`` (the
-training slice), the compiled executor with its ``StageStacks`` envelope,
-and fault injection.
+Not ported yet (ROADMAP Queue 1): the compiled executor with its
+``StageStacks`` envelope and CUDA-graph capture, and fault injection.
 
 Counting conventions (shared with the analytic model):
   * an aggregation sub-stage executes inside its layer's slot; its cores
@@ -37,16 +41,22 @@ from repro_torch import resolve_device
 from repro_torch.core import hw_model as hw
 from repro_torch.core import quantization as q
 from repro_torch.core.crossbar import (CORE_COLS, CORE_ROWS, CrossbarSpec,
-                                       hard_sigmoid)
+                                       hard_sigmoid, hard_sigmoid_deriv)
 from repro_torch.core.mapping import map_network
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.sim.noc import NocTracker
 from repro_torch.sim.placer import (Placement, Stage, place_network,
-                                    stage_dot_products)
+                                    stage_dot_products, tile_inputs)
 from repro_torch.sim.report import PhaseCounters, SimReport
 
-_TRAINING_SLICE = ("chip training (train_step / backward_update) is not "
-                   "ported yet: ROADMAP Queue 1 item 4, the training slice")
+
+def _tile_cols(v: torch.Tensor, r: int, c: int, cols: int) -> torch.Tensor:
+    """(M, fan_out) per-neuron values -> (r*c, M, cols) per-core slabs
+    (slice t = i*c + j carries fan-out tile j, same for every fan-in i)."""
+    M, O = v.shape
+    vp = torch.nn.functional.pad(v, (0, c * cols - O))
+    ct = vp.reshape(M, c, cols).transpose(0, 1)          # (c, M, cols)
+    return ct.repeat(r, 1, 1)
 
 
 class VirtualChip:
@@ -198,16 +208,84 @@ class VirtualChip:
         return hw.FWD_US + self.infer_counters.noc.slot_us
 
     # ------------------------------------------------------------------
-    # Training: the next slice
+    # Training (the paper's fwd / bwd / update phases, Table II)
     # ------------------------------------------------------------------
 
-    def backward_update(self, *args, **kwargs):
-        """Not ported yet (ROADMAP Queue 1 item 4, the training slice)."""
-        raise NotImplementedError(_TRAINING_SLICE)
+    def backward_update(self, acts: list[torch.Tensor],
+                        dps: list[torch.Tensor], delta: torch.Tensor,
+                        lr: float, *, global_batch: int | None = None,
+                        counters: PhaseCounters | None = None
+                        ) -> torch.Tensor:
+        """Run the bwd + update phases over this chip's stage slice.
 
-    def train_step(self, *args, **kwargs):
-        """Not ported yet (ROADMAP Queue 1 item 4, the training slice)."""
-        raise NotImplementedError(_TRAINING_SLICE)
+        ``delta`` is the error arriving at the slice's OUTPUT side (the
+        global ``target - out`` for a whole chip); each stage first
+        quantizes it to 8-bit sign-magnitude (III.F step 1).  Returns the
+        error that leaves the first stage toward the network input.
+        ``global_batch`` is the learning-rate batch normalizer (defaults to
+        ``delta``'s batch).  Each stage's backward phase is one
+        ``crossbar_bwd_stacked`` launch and its update phase one
+        ``pulse_update_stacked`` launch; the new conductances are stored
+        with `Placement.set_stage_stacks`."""
+        spec = self.spec
+        M = delta.shape[0]
+        B = M if global_batch is None else global_batch
+        c = counters if counters is not None else self.train_counters
+
+        for si in reversed(range(len(self.placement.stages))):
+            st = self.placement.stages[si]
+            r, ct = st.row_tiles, st.col_tiles
+            if spec.error_quant:
+                # III.F step 1: errors ride the links as 8-bit
+                # sign-magnitude codes.
+                delta = q.error_quantize(delta, spec.err_bits).dequantize()
+            local = delta * hard_sigmoid_deriv(dps[si])
+
+            # -- backward phase: the error drives the SAME conductance
+            # stacks transposed (Eq. 7 / Fig. 9), one launch.
+            ds = _tile_cols(local, r, ct, st.cols)
+            dxs = kernel_ops.crossbar_bwd_stacked(ds, st.g_plus, st.g_minus)
+            dx = (dxs.reshape(r, ct, M, st.rows).sum(dim=1)
+                     .transpose(0, 1).reshape(M, r * st.rows))
+            delta_prev = dx[:, 1:st.lmap.fan_in + 1]   # strip bias line
+            c.record_phase("bwd", st.n_cores, M)
+
+            # -- update phase: per-core outer product + pulse
+            # discretization + clipping, one launch.
+            xs = tile_inputs(acts[si], r, ct, st.rows)
+            if spec.update_quant:
+                gp, gm = kernel_ops.pulse_update_stacked(
+                    st.g_plus, st.g_minus, xs, ds, lr=lr / B,
+                    max_dw=spec.max_update, levels=spec.update_levels,
+                    w_max=spec.w_max)
+            else:
+                dw = 2.0 * (lr / B) * torch.einsum("tmk,tmn->tkn", xs, ds)
+                gp = torch.clamp(st.g_plus + 0.5 * dw, 0.0, spec.w_max)
+                gm = torch.clamp(st.g_minus - 0.5 * dw, 0.0, spec.w_max)
+            self.placement.set_stage_stacks(si, gp, gm)
+            c.record_phase("update", st.n_cores, M)
+
+            delta = delta_prev
+        return delta
+
+    def train_step(self, x, target, lr: float) -> torch.Tensor:
+        """One stochastic-BP step executed on the chip, writing the pulse
+        updates into the conductance stacks.  Matches
+        `core.crossbar.paper_backprop_step` under equal specs (up to pulse
+        counts that sit on a rounding boundary).  Returns the output error
+        (target - prediction)."""
+        x = self._input(x)
+        target = self._input(target)
+        M = x.shape[0]
+        c = self.train_counters
+        acts, dps, _ = self._forward(x, c)
+        out = hard_sigmoid(dps[-1])
+        self.backward_update(acts, dps, target - out, lr, counters=c)
+
+        c.samples += M
+        c.record_io(2 * self.placement.dims[0] * self.input_bits
+                    + self.placement.dims[-1] * hw.ADC_BITS_OUT, M)
+        return target - out
 
     # ------------------------------------------------------------------
     # Reporting

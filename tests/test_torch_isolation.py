@@ -86,13 +86,18 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
 
 
 def test_cli_runs_recognition_on_cpu_and_refuses_training(tmp_path, capsys):
+    # training is ported now: --train-steps 0 is recognition only, the
+    # default takes the reference's one step; fault flags stay refused
     from repro_torch.launch import chipsim
     out = tmp_path / "rec.json"
     chipsim.main(["--app", "kdd_anomaly", "--device", "cpu", "--samples",
-                  "4", "--json", str(out)])
-    assert "cross-validation vs hw_model" in capsys.readouterr().out
+                  "4", "--train-steps", "0", "--json", str(out)])
+    text = capsys.readouterr().out
+    assert "cross-validation vs hw_model" in text
+    assert "train step" not in text and "train_time" not in text
     assert out.exists()
-    with pytest.raises(SystemExit, match="training slice"):
-        chipsim.main(["--device", "cpu", "--train-steps", "1"])
+    chipsim.main(["--device", "cpu", "--samples", "2"])
+    text = capsys.readouterr().out
+    assert "train step 0" in text and "train step 1" not in text
     with pytest.raises(SystemExit, match="fault injection"):
         chipsim.main(["--device", "cpu", "--stuck-off", "0.1"])
