@@ -9,43 +9,64 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and turns TF32
    off for every fp32 matmul and convolution;
-2. builds the four crossbar kernels from ``src/repro_torch/kernels/csrc``
+2. builds the five crossbar kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together) and prints the build time
    and ptxas' register/spill report;
-3. kernel phase: holds each CUDA kernel against its plain PyTorch version
+3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
    (4-D) case and the fused activation + 3-bit ADC epilogue; the error
    backprop, weight gradient and pulse update at every training stage
    stack (M = 1, 64 and 4096), a ragged shape (K = 300, N = 26), a
-   chip-axis case and the int8 error-code path of bwd and dw — and times
-   each kernel, its plain version and ``torch.bmm`` for the same
-   contraction at M = 4096 beside the bound;
-4. recognition path: ``build_chip("mnist_class")`` at full width
-   (784-300-200-100-10, 13 cores) runs ``infer_stream`` on 16 samples and
-   on a 4096-sample wave, then ``build_chip("isolet_class")`` (160 cores)
-   one 256-sample wave, with the forward kernel's launch count set to 0
-   before and read after (5 launches per mnist wave, 9 per isolet wave).
-   Outputs are held against the port's plain ``mlp_forward`` and, stage by
-   stage, against the plain product on the chip's own stage inputs;
-   ``mlp_forward(use_kernel=True)`` against its plain version; the counters
-   against ``hw_model`` within 1 % and the beat against Table IV's 0.77 us;
-5. training path: with every count set to 0, mnist_class takes 3
-   ``train_step``s at batch 1 and 2 at batch 4096, and isolet_class one at
-   batch 256.  Each stage's backward phase must be one bwd launch and its
-   update one pulse launch (4 + 4 per mnist step, 5 + 5 per isolet step);
-   every stage's dx and new conductances are held against the plain
-   versions on the chip's own stage inputs, each whole step against the
-   port's plain ``paper_backprop_step`` on the same layers and data, and
-   ``compare_hw`` within 1 % on all six keys;
-6. ``crossbar_apply(use_kernel=True)`` path: the gradients of a
+   chip-axis case and the int8 error-code path of bwd and dw; the fused
+   training kernel at every training stage stack (M = 1, 64, 4096), the
+   ragged zero-padded stacks and int8 codes of the reference's megakernel
+   sweep and a chip-axis case, with the forward on, and off with the update
+   copied in place — held against its plain version and BIT FOR BIT
+   against the four-call sequence (fwd without activation, bwd, pulse on
+   the dequantized error) — and time each kernel, its plain version and
+   ``torch.bmm`` for the same contraction at M = 4096 beside the bound;
+4. eager recognition path (``compiled=False``): ``build_chip`` for
+   mnist_class at full width (784-300-200-100-10, 13 cores) runs
+   ``infer_stream`` on 16 samples and on a 4096-sample wave, isolet_class
+   (160 cores) one 256-sample wave, with the forward kernel's launch count
+   set to 0 before and read after (5 launches per mnist wave, 9 per isolet
+   wave).  Outputs are held against the port's plain ``mlp_forward`` and,
+   stage by stage, against the plain product on the chip's own stage
+   inputs; ``mlp_forward(use_kernel=True)`` against its plain version; the
+   counters against ``hw_model`` within 1 % and the beat against Table
+   IV's 0.77 us;
+5. compiled recognition path (the chip's default): the same three waves,
+   each twice (the first call captures the CUDA graph, the second
+   replays it), counts at 0 before and read after: 4 forward launches per
+   mnist wave, 5 per isolet wave, one capture per (program, shape); each
+   replay equals its first run, is held like step 4 and against the eager
+   chip's output on the same conductances;
+6. eager training path (``compiled=False``): with every count set to 0,
+   mnist_class takes 3 ``train_step``s at batch 1 and 2 at batch 4096, and
+   isolet_class one at batch 256.  Each stage's backward phase must be one
+   bwd launch and its update one pulse launch (4 + 4 per mnist step, 5 + 5
+   per isolet step); every stage's dx and new conductances are held
+   against the plain versions on the chip's own stage inputs, each whole
+   step against the port's plain ``paper_backprop_step`` on the same
+   layers and data, and ``compare_hw`` within 1 % on all six keys;
+7. compiled training path: the same six steps on compiled chips, the lr
+   halved before the third batch-1 step (no new capture), counts at 0
+   before and read after: 4 forward + 4 fused launches per mnist step, 5 +
+   5 per isolet step, one capture per batch; the envelope's address does
+   not move.  Every stage is held against the plain versions on its own
+   inputs (read back from the graph's memory after each replay), and each
+   step against the eager chip's step from the same conductances;
+8. ``crossbar_apply(use_kernel=True)`` path: the gradients of a
    squared-error loss through mnist's four layers at M = 64 and 4096, with
    8-bit error quantization, through ``crossbar_matmul`` (one bwd and one
    dw launch per layer), held layer by layer against the plain
    ``_xbar_matmul`` path on the same inputs;
-7. prints the wave and training-step times (CUDA events), a
-   ``torch.profiler`` breakdown of one mnist wave, one
-   ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+9. prints the wave and training-step times (CUDA events), compiled beside
+   eager, ``torch.profiler`` breakdowns of the waves and steps with the
+   device's idle share, the kernels of one profiled replay (the port's
+   kernels and only those), one ``{"kernels": [...]}`` line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -54,7 +75,8 @@ value before the ADC lies within 1e-6 of a half-step boundary — and then
 only the samples downstream of such a flip may differ end to end.  Pulse
 counts may differ by one only where the plain unrounded count lies within
 1e-4 of a half-integer; there a conductance may differ by one half pulse
-(u/2 = 1.95e-4), everywhere else by at most 1e-6.  Any failure raises.
+(u/2 = 1.95e-4), everywhere else by at most 1e-6.  The fused kernel and
+the four-call sequence must agree exactly.  Any failure raises.
 """
 from __future__ import annotations
 
@@ -99,7 +121,11 @@ TRAIN_SHAPES = {
 }
 # (K, N) of mnist's four layers: crossbar_apply(use_kernel=True) shapes
 MNIST_LAYERS = [(784, 300), (300, 200), (200, 100), (100, 10)]
-KERNELS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update")
+KERNELS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
+           "crossbar_train")
+# (chip, batch, lr) of the training main path, in order
+STEPS = ([("mnist_class", 1, LR)] * 2 + [("mnist_class", 1, LR / 2)]
+         + [("mnist_class", 4096, LR)] * 2 + [("isolet_class", 256, LR)])
 
 
 def card_line() -> str:
@@ -142,6 +168,9 @@ def bound(T, M, K, N, kernel: str = "crossbar_fwd",
     elif kernel == "crossbar_dw":
         flops = 2.0 * T * M * K * N
         nbytes = T * (M * K * 4 + M * N * dy_bytes + K * N * 4)
+    elif kernel == "crossbar_train":   # dx + dw products, delta, epilogue
+        flops = 4.0 * T * M * K * N + 11.0 * T * K * N
+        nbytes = T * (2 * M * K * 4 + M * N * dy_bytes + 4 * K * N * 4)
     else:   # pulse_update: product + a 10-operation epilogue per cell
         flops = 2.0 * T * M * K * N + 10.0 * T * K * N
         nbytes = 4.0 * T * (M * K + M * N + 4 * K * N)
@@ -302,7 +331,8 @@ def train_kernel_cases() -> list[dict]:
 def train_kernel_phase(xbk, ops, gen) -> tuple[dict, list[dict]]:
     """bwd, dw and pulse kernels vs their plain versions on the card;
     returns ({kernel: max |err|}, timing rows at M = 4096)."""
-    max_err = {k: 0.0 for k in KERNELS[1:]}
+    max_err = {k: 0.0 for k in ("crossbar_bwd", "crossbar_dw",
+                                "pulse_update")}
     rows, flips = [], 0
     cases = train_kernel_cases()
     for case in cases:
@@ -412,6 +442,114 @@ def time_dw_codes(xbk, xs, codes, scale) -> dict:
                                                   dy_scale=scale),
         "library_ms": lambda: torch.bmm(xs.transpose(1, 2), dys),
     }, dy_bytes=1, codes="int8")
+
+
+def fused_kernel_cases() -> list[dict]:
+    """Fused-kernel cases: every training stage stack at M = 1, 64, 4096,
+    and tests/test_compiled_step.py's megakernel shapes (ragged stacks with
+    zeroed trailing cores, int8 codes), a chip axis, codes at full size."""
+    stacks = sorted({s for v in TRAIN_SHAPES.values() for s in v})
+    cases = [dict(shape=(T, M, K, N)) for T, K, N in stacks
+             for M in (1, 64, 4096)]
+    cases += [dict(shape=(1, 2, 17, 9)), dict(shape=(3, 4, 41, 15)),
+              dict(shape=(4, 2, 400, 100), ragged=2),
+              dict(shape=(3, 4, 41, 15), codes=True),
+              dict(shape=(5, 3, 129, 101), codes=True, ragged=3),
+              dict(shape=(3, 7, 45, 13), chips=2, codes=True),
+              dict(shape=(6, 4096, 400, 100), codes=True)]
+    return cases
+
+
+def fused_kernel_phase(xbk, ops, gen) -> tuple[float, list[dict]]:
+    """The fused training kernel against the four-call sequence (bit for
+    bit) and against its plain version; returns (max |kernel - plain| of
+    ys and dxs, timing rows at M = 4096)."""
+    max_err, rows, flips = 0.0, [], 0
+    cases = fused_kernel_cases()
+    rule = dict(max_dw=MAX_DW, levels=LEVELS, w_max=W_MAX)
+    for case in cases:
+        T, M, K, N = case["shape"]
+        lead = (case["chips"],) if "chips" in case else ()
+        xs = uniform(lead + (T, M, K), -0.5, 0.5, gen)
+        gp = uniform(lead + (T, K, N), 0.3, 0.7, gen)
+        gm = uniform(lead + (T, K, N), 0.3, 0.7, gen)
+        scale = None
+        if case.get("codes"):
+            dys = torch.randint(-127, 128, lead + (T, M, N), generator=gen,
+                                dtype=torch.int8, device="cuda")
+            scale = torch.tensor(0.05 / 127, device="cuda")
+        else:
+            dys = uniform(lead + (T, M, N), -0.05, 0.05, gen)
+        if case.get("ragged"):   # the envelope's zeroed trailing cores
+            for a in (xs, gp, gm, dys):
+                a[..., T - case["ragged"]:, :, :] = 0
+        d = dys if scale is None else dys.float() * scale
+        lr = 0.25 / M ** 0.5
+        lr_t = torch.full((1,), lr, device="cuda")
+        gpi, gmi = gp.clone(), gm.clone()
+        if lead:   # through the wrapper's chip-axis fold
+            got = ops.crossbar_train_stacked(gp, gm, xs, dys, lr=lr_t,
+                                             dy_scale=scale, compute_y=True,
+                                             **rule)
+            dxi = ops.crossbar_train_stacked(gpi, gmi, xs, dys, lr=lr_t,
+                                             dy_scale=scale, inplace=True,
+                                             **rule)[1]
+            got = [a.reshape((-1,) + a.shape[2:]) for a in got]
+            dxi, xs, d, dys, gp, gm, gpi, gmi = (
+                a.reshape((-1,) + a.shape[2:])
+                for a in (dxi, xs, d, dys, gp, gm, gpi, gmi))
+        else:
+            got = xbk.crossbar_train_kernel(gp, gm, xs, dys, lr=lr_t,
+                                            dy_scale=scale, compute_y=True,
+                                            **rule)
+            dxi = ops.crossbar_train_stacked(gpi, gmi, xs, dys, lr=lr_t,
+                                             dy_scale=scale, inplace=True,
+                                             **rule)[1]
+        four = (xbk.crossbar_fwd_kernel(xs, gp, gm, activation=False),
+                xbk.crossbar_bwd_kernel(d, gp, gm),
+                *xbk.pulse_update_kernel(gp, gm, xs, d, lr=lr, **rule))
+        torch.cuda.synchronize()
+        what = f"fused {case} lr={lr:.4g}"
+        for name, a, b in zip(("ys", "dxs", "g+", "g-"), got, four):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     f"four-call sequence")
+        for name, a, b in (("in-place dxs", dxi, four[1]),
+                           ("in-place g+", gpi, four[2]),
+                           ("in-place g-", gmi, four[3])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     f"four-call sequence")
+        want = xbk.crossbar_train_plain(gp, gm, xs, dys, lr=lr,
+                                        dy_scale=scale, compute_y=True,
+                                        **rule)
+        max_err = max(max_err, close(got[0], want[0], f"{what} ys"),
+                      close(got[1], want[1], f"{what} dxs"))
+        counts = xbk.pulse_counts_plain(xs, d, lr=lr, max_dw=MAX_DW,
+                                        levels=LEVELS)
+        flips += check_pulse_counts(gp, gm, got[2:], want[2:], counts, what)
+        if M == 4096 and not lead and scale is None:
+            rows.append(time_fused_shape(xbk, xs, d, gp, gm, lr))
+    print(f"fused kernel phase: {len(cases)} cases x (forward on; forward "
+          f"off, copied in place), bit for bit equal to the "
+          f"four-call sequence; max |kernel - plain| {max_err:.3e} (ys, "
+          f"dxs), {flips} pulse counts one apart at a half-integer")
+    return max_err, rows
+
+
+def time_fused_shape(xbk, xs, ds, gp, gm, lr) -> dict:
+    """Kernel (forward off, as in the compiled step) / plain / ``torch.bmm``
+    for dx plus ``torch.bmm`` for dw, on one stage stack."""
+    T, M, K = xs.shape
+    N = ds.shape[2]
+    lr_t = torch.full((1,), lr, device="cuda")
+    xt = xs.transpose(1, 2)
+    return time_row("crossbar_train", T, M, K, N, {
+        "ms": lambda: xbk.crossbar_train_kernel(gp, gm, xs, ds, lr=lr_t),
+        "plain_ms": lambda: xbk.crossbar_train_plain(gp, gm, xs, ds, lr=lr),
+        "library_ms": lambda: (torch.bmm(ds, (gp - gm).transpose(1, 2)),
+                               torch.bmm(xt, ds)),
+    }, library="bmm for dx + bmm for dw, without the pulse epilogue")
 
 
 # ---------------------------------------------------------------------------
@@ -572,24 +710,22 @@ def untile(stack: torch.Tensor, st) -> torch.Tensor:
     return full[1:st.lmap.fan_in + 1, :st.lmap.fan_out]
 
 
-def chip_stage_inputs(chip, bwd, pulse) -> list[dict]:
-    """Per layer, the chip's own stage inputs read back from its bwd and
-    pulse launches: input activations (core i*c holds fan-in tile i), local
-    errors (core j holds fan-out tile j) and the unrounded pulse counts of
-    the plain rule on them."""
+def chip_stage_inputs(chip, entries) -> list[dict]:
+    """Per layer, the chip's own stage inputs read back from its update
+    launches — ``entries`` holds each stage's (core inputs xs, core errors
+    ds, lr), last stage first: input activations (core i*c holds fan-in
+    tile i), local errors (core j holds fan-out tile j) and the unrounded
+    pulse counts of the plain rule on them."""
     from repro_torch.kernels import crossbar as xbk
     out = [None] * len(chip.placement.stages)
-    for (bargs, _, _), (pargs, pkw, _), st in zip(
-            bwd, pulse, reversed(chip.placement.stages)):
-        xs, ds = pargs[2], pargs[3]
+    for (xs, ds, lr), st in zip(entries, reversed(chip.placement.stages)):
         r, c = st.row_tiles, st.col_tiles
-        counts = xbk.pulse_counts_plain(xs, ds, lr=pkw["lr"],
-                                        max_dw=pkw["max_dw"],
-                                        levels=pkw["levels"])
+        counts = xbk.pulse_counts_plain(xs, ds, lr=lr, max_dw=MAX_DW,
+                                        levels=LEVELS)
         out[st.index] = {
             "act": torch.cat([xs[i * c] for i in range(r)],
                              dim=1)[:, 1:st.lmap.fan_in + 1],
-            "local": torch.cat([bargs[0][j] for j in range(c)],
+            "local": torch.cat([ds[j] for j in range(c)],
                                dim=1)[:, :st.lmap.fan_out],
             "counts": untile(counts, st).double(),
         }
@@ -627,7 +763,8 @@ def check_train_step(chip, rec, n, layers0, layers1, x, target, err, spec,
                                         levels=pkw["levels"])
         stage_flips += check_conductances(new, want, counts,
                                           f"{chip.name} stage g±")
-    ours = chip_stage_inputs(chip, bwd, pulse)
+    ours = chip_stage_inputs(chip, [(a[2], a[3], kw["lr"])
+                                    for a, kw, _ in pulse])
     plain = plain_rule(layers0, x, target, spec, lr)
     # forward codes on the chip's own stage inputs
     flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -675,8 +812,10 @@ def check_train_step(chip, rec, n, layers0, layers1, x, target, err, spec,
 def train_path(ops, chip_mod, build_chip, spec, paper_backprop_step, hw,
                gen) -> dict:
     """The training main path (see the module docstring, step 5)."""
-    mnist = build_chip("mnist_class", seed=SEED, device="cuda")
-    isolet = build_chip("isolet_class", seed=SEED, device="cuda")
+    mnist = build_chip("mnist_class", seed=SEED, device="cuda",
+                       compiled=False)
+    isolet = build_chip("isolet_class", seed=SEED, device="cuda",
+                        compiled=False)
     # one counted recognition wave each, so compare_hw has its infer keys
     mnist.infer(uniform((4, 784), -0.5, 0.5, gen))
     isolet.infer(uniform((4, 617), -0.5, 0.5, gen))
@@ -728,6 +867,304 @@ def train_path(ops, chip_mod, build_chip, spec, paper_backprop_step, hw,
             raise AssertionError(f"{chip.name}: hw_model cross-validation "
                                  f"{cmp_}")
         print(f"{chip.name} after training: hw_model rel err "
+              + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Compiled paths (the chip's default: one captured CUDA graph per shape)
+# ---------------------------------------------------------------------------
+
+WRAPPERS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
+            "crossbar_fwd_stacked", "crossbar_bwd_stacked",
+            "crossbar_dw_stacked", "pulse_update_stacked",
+            "crossbar_train_stacked")
+
+
+def zero_counts(ops, csim) -> None:
+    """Every wrapper's launch count and the capture count to 0."""
+    for n in WRAPPERS:
+        getattr(ops, n).launches = 0
+    csim.reset_capture_counts()
+
+
+def read_counts(ops) -> dict[str, int]:
+    return {n: getattr(ops, n).launches for n in WRAPPERS
+            if getattr(ops, n).launches}
+
+
+def per_replay(chips: dict) -> dict[str, dict]:
+    """Each built program's kernel launches per replay, by chip and key."""
+    return {f"{app} {key[0]} {key[2]}": prog.per_replay
+            for app, chip in chips.items()
+            for key, prog in chip._get_stacks().programs.items()}
+
+
+def check_against_eager(chip_c, chip_e, x, out_c, out_e) -> int:
+    """A compiled wave against the eager chip's on the same conductances:
+    stage inputs as 3-bit codes (a flip only at a boundary), dot products
+    and outputs within ATOL on every sample not past a flip.  Returns the
+    samples past a flip."""
+    from repro_torch.core.crossbar import hard_sigmoid
+    ac, dc, _ = chip_c.forward_wave(x, count=False)
+    ae, de, _ = chip_e.forward_wave(x, count=False)
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for s in range(len(dc)):
+        if s:
+            flipped |= code_flips(hard_sigmoid(de[s - 1]), ac[s])
+        off = ((dc[s] - de[s]).abs() > ATOL).any(dim=-1)
+        if bool((off & ~flipped).any()):
+            raise AssertionError(f"{chip_c.name}: stage {s} dot products "
+                                 f"differ from eager off a code flip")
+    off = ((out_c - out_e).abs() > ATOL).any(dim=-1)
+    if bool((off & ~flipped).any()):
+        raise AssertionError(f"{chip_c.name}: compiled output differs from "
+                             f"eager on a sample with no boundary flip")
+    return int(flipped.sum())
+
+
+def compiled_recognition(ops, csim, build_chip, mlp_forward, hw, eager,
+                         waves) -> tuple[dict, dict]:
+    """The compiled recognition path (module docstring, step 5): each wave
+    of ``waves`` ((app, x, eager output)) twice on a compiled chip.
+    Returns (chips, launch counts)."""
+    chips = {app: build_chip(app, seed=SEED, device="cuda")
+             for app in ("mnist_class", "isolet_class")}
+    zero_counts(ops, csim)
+    outs = []
+    for app, x, _ in waves:
+        first, _ = chips[app].infer_stream(x)     # capture
+        outs.append((first, chips[app].infer_stream(x)[0]))   # replay
+    torch.cuda.synchronize()
+    launches, captures = read_counts(ops), csim.capture_counts()
+    if launches != {"crossbar_fwd_stacked": 2 * (4 + 4 + 5)}:
+        raise AssertionError(f"compiled recognition launches {launches}, "
+                             f"expected 4 per mnist wave and 5 per isolet "
+                             f"wave, 2 waves per shape")
+    if len(captures) != len(waves) or set(captures.values()) != {1}:
+        raise AssertionError(f"captures {captures}: expected one per shape")
+    replays = per_replay(chips)
+    for name, got in replays.items():
+        want = 4 if name.startswith("mnist") else 5
+        if got != {"crossbar_fwd_stacked": want}:
+            raise AssertionError(f"{name}: {got} per replay")
+    flips = {}
+    for (app, x, out_e), (first, replay) in zip(waves, outs):
+        if not torch.equal(first, replay):
+            raise AssertionError(f"{app}: a replay differs from its first "
+                                 f"run")
+        what = f"{app} x{x.shape[0]}"
+        flips[f"{what} vs plain"] = check_chip_wave(
+            chips[app], x, replay, mlp_forward, chips[app].spec)
+        flips[f"{what} vs eager"] = check_against_eager(
+            chips[app], eager[app], x, replay, out_e)
+    print(f"compiled recognition path: launches {json.dumps(launches)} "
+          f"(4 per mnist wave x 4, 5 per isolet wave x 2), "
+          f"{len(captures)} captures, one per (program, shape); per replay "
+          + json.dumps(replays))
+    print("compiled waves held against plain and eager (samples after a "
+          "boundary code flip): " + json.dumps(flips))
+    for chip in chips.values():
+        cmp_ = check_report(chip, hw)
+        print(f"{chip.name} compiled: beat {chip.beat_us:.4f} us, hw_model "
+              "rel err " + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
+    return chips, launches
+
+
+class GraphRecorder:
+    """Stands in for ``kernels.ops`` inside ``sim.compiled`` and keeps what
+    the fused wrapper read and wrote: (xs, ds, lr, dxs) per stage.  A
+    program's first call runs the stage loop for real (its entries hold
+    that call's values); its capture's entries are the graph's own memory,
+    which every replay rewrites, so after a replay they hold that replay's
+    stage inputs.  It launches nothing itself."""
+
+    def __init__(self, ops):
+        self._ops = ops
+        self.run, self.captured = [], []
+
+    def __getattr__(self, name):
+        fn = getattr(self._ops, name)
+        if name != "crossbar_train_stacked":
+            return fn
+
+        def record(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            capturing = torch.cuda.is_current_stream_capturing()
+            (self.captured if capturing else self.run).append(
+                (args[2], args[3], kwargs["lr"], out[1]))
+            return out
+        return record
+
+
+def stage_stacks(chip) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    return [(st.g_plus.clone(), st.g_minus.clone())
+            for st in chip.placement.stages]
+
+
+def stacks_to_layers(stacks, chip) -> list[dict[str, torch.Tensor]]:
+    return [{"g_plus": untile(gp, st), "g_minus": untile(gm, st)}
+            for (gp, gm), st in zip(stacks, chip.placement.stages)]
+
+
+def check_compiled_step(chip, ours_c, ours_e, layers0, layers_c, layers_e,
+                        x, target, err_c, err_e, spec, lr) -> dict:
+    """Hold a compiled step against the eager chip's step from the same
+    conductances, under the tolerances of ``check_train_step``: forward
+    codes and 8-bit error codes may flip only at their boundaries, and a
+    pulse count may differ by one next to a half-integer or where the two
+    sides' own inputs round apart downstream of such a flip."""
+    from repro_torch.core.crossbar import hard_sigmoid
+    S = len(layers0)
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for s in range(1, S):
+        w = layers0[s - 1]["g_plus"] - layers0[s - 1]["g_minus"]
+        for ours in (ours_c, ours_e):
+            flipped |= code_flips(hard_sigmoid(ours[s - 1]["act"] @ w),
+                                  ours[s]["act"])
+    plain = plain_rule(layers0, x, target, spec, lr)
+    err_flips = 0
+    for s in reversed(range(S)):
+        off = (ours_c[s]["local"] - ours_e[s]["local"]).abs() > ATOL
+        off &= ~flipped[:, None]
+        if bool(off.any()):
+            r = plain[s]["ratio"][off]
+            if bool(((r - torch.floor(r) - 0.5).abs() > 1e-3).any()):
+                raise AssertionError(f"{chip.name}: layer {s} local error "
+                                     f"differs off an 8-bit code boundary")
+            err_flips = int(off.sum())
+            break
+    off = ((err_c - err_e).abs() > ATOL).any(dim=-1)
+    if bool((off & ~flipped).any()):
+        raise AssertionError(f"{chip.name}: compiled step error differs "
+                             f"from eager off a code flip")
+    differ = bool(flipped.any()) or err_flips > 0
+    step_flips = 0
+    for li in range(S):
+        counts = ours_e[li]["counts"]
+        if differ:
+            apart = (torch.round(ours_c[li]["counts"])
+                     != torch.round(counts))
+            counts = torch.where(apart, torch.full_like(counts, 0.5), counts)
+        step_flips += check_conductances(
+            (layers_c[li]["g_plus"], layers_c[li]["g_minus"]),
+            (layers_e[li]["g_plus"], layers_e[li]["g_minus"]), counts,
+            f"{chip.name} compiled step layer {li} vs eager")
+    return {"step_pulse_flips": step_flips,
+            "fwd_code_flip_samples": int(flipped.sum()),
+            "err_code_flips": err_flips}
+
+
+def compiled_train_path(ops, csim, chip_mod, build_chip, spec, hw,
+                        gen) -> dict:
+    """The compiled training path (module docstring, step 7)."""
+    from repro_torch.kernels import crossbar as xbk
+    apps = ("mnist_class", "isolet_class")
+    chips = {a: build_chip(a, seed=SEED, device="cuda") for a in apps}
+    eager = {a: build_chip(a, seed=SEED, device="cuda", compiled=False)
+             for a in apps}
+    for chip in (*chips.values(), *eager.values()):
+        # one counted wave each, so compare_hw has its infer keys
+        chip.infer(uniform((4, chip.placement.dims[0]), -0.5, 0.5, gen))
+    data = [(app, uniform((B, chips[app].placement.dims[0]), -0.5, 0.5, gen),
+             uniform((B, chips[app].placement.dims[-1]), -0.5, 0.5, gen),
+             lr) for app, B, lr in STEPS]
+    ptrs = {a: (c._get_stacks().g_plus.data_ptr(),
+                c._get_stacks().g_minus.data_ptr())
+            for a, c in chips.items()}
+    rec = GraphRecorder(ops)
+    graphs, records = {}, []
+    csim.kernel_ops = rec
+    try:
+        zero_counts(ops, csim)
+        for app, x, t, lr in data:
+            chip = chips[app]
+            S = len(chip.placement.stages)
+            before, n_run, n_cap = stage_stacks(chip), len(rec.run), \
+                len(rec.captured)
+            err = chip.train_step(x, t, lr=lr)
+            if len(rec.run) > n_run:    # this call built its program
+                entries = rec.run[n_run:n_run + S]
+                graphs[(app, x.shape[0])] = rec.captured[n_cap:n_cap + S]
+            else:                       # a replay: read the graph's memory
+                entries = graphs[(app, x.shape[0])]
+            entries = [tuple(a.clone() for a in e) for e in entries]
+            records.append((app, x, t, lr, before, entries, err.clone(),
+                            stage_stacks(chip)))
+        torch.cuda.synchronize()
+        launches, captures = read_counts(ops), csim.capture_counts()
+    finally:
+        csim.kernel_ops = ops
+    expect = 4 * 5 + 5
+    if launches != {"crossbar_fwd_stacked": expect,
+                    "crossbar_train_stacked": expect}:
+        raise AssertionError(f"compiled training launches {launches}, "
+                             f"expected {expect} fwd and {expect} fused")
+    if sorted(k[2] for k in captures) != [(1, 784), (256, 617),
+                                          (4096, 784)] \
+            or set(captures.values()) != {1}:
+        raise AssertionError(f"captures {captures}: expected one per batch "
+                             f"(the lr change must not recapture)")
+    after = {a: (c._get_stacks().g_plus.data_ptr(),
+                 c._get_stacks().g_minus.data_ptr())
+             for a, c in chips.items()}
+    if after != ptrs:
+        raise AssertionError(f"the envelope moved: {ptrs} -> {after}")
+    replays = {k: v for k, v in per_replay(chips).items() if "train" in k}
+    print(f"compiled training path: launches {json.dumps(launches)} (4 + 4 "
+          f"per mnist step x 5, 5 + 5 per isolet step), captures "
+          + json.dumps({f"{k[0]} {k[2]}": v for k, v in captures.items()})
+          + " (lr halved before the third batch-1 step), per replay "
+          + json.dumps(replays) + f"; envelope data_ptr (g+, g-) before "
+          f"{json.dumps(ptrs)} after {json.dumps(after)}")
+    # stage by stage and against eager, outside the counted run
+    erec = Recorder(ops)
+    chip_mod.kernel_ops = erec
+    results, stage_flips = [], 0
+    try:
+        for app, x, t, lr, before, entries, err, after_st in records:
+            chip, ech = chips[app], eager[app]
+            for (xs, ds, lr_t, dxs), st in zip(
+                    entries, reversed(chip.placement.stages)):
+                gp0, gm0 = before[st.index]
+                close(dxs, xbk.crossbar_bwd_plain(ds, gp0, gm0),
+                      f"{app} compiled stage {st.index} dx")
+                want = xbk.pulse_update_plain(
+                    gp0, gm0, xs, ds, lr=lr_t, max_dw=MAX_DW,
+                    levels=LEVELS, w_max=W_MAX)
+                counts = xbk.pulse_counts_plain(xs, ds, lr=lr_t,
+                                                max_dw=MAX_DW, levels=LEVELS)
+                stage_flips += check_conductances(
+                    after_st[st.index], want, counts,
+                    f"{app} compiled stage {st.index} g±")
+            for s, (gp, gm) in enumerate(before):
+                ech.placement.set_stage_stacks(s, gp.clone(), gm.clone())
+            n = len(erec.calls["pulse_update_stacked"])
+            err_e = ech.train_step(x, t, lr=lr)
+            pulse = erec.calls["pulse_update_stacked"][n:]
+            ours_e = chip_stage_inputs(ech, [(a[2], a[3], kw["lr"])
+                                             for a, kw, _ in pulse])
+            ours_c = chip_stage_inputs(chip, [e[:3] for e in entries])
+            results.append(check_compiled_step(
+                chip, ours_c, ours_e, stacks_to_layers(before, chip),
+                stacks_to_layers(after_st, chip), clone_layers(ech), x, t,
+                err, err_e, spec, lr))
+        torch.cuda.synchronize()
+    finally:
+        chip_mod.kernel_ops = ops
+    print(f"compiled training steps held against plain per stage "
+          f"({stage_flips} pulse counts one apart at a half-integer) and "
+          f"against eager (batch 1 x3, 4096 x2 mnist; 256 isolet): "
+          + json.dumps(results))
+    keys = {"infer_time", "infer_energy", "infer_io", "train_time",
+            "train_energy", "train_io"}
+    for chip in chips.values():
+        cmp_ = chip.report().compare_hw(
+            hw.network_cost(chip.name, list(chip.placement.dims)))
+        if set(cmp_) != keys or not all(v <= 0.01 for v in cmp_.values()):
+            raise AssertionError(f"{chip.name}: hw_model cross-validation "
+                                 f"{cmp_}")
+        print(f"{chip.name} compiled, after training: hw_model rel err "
               + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
     return launches
 
@@ -827,6 +1264,26 @@ def profile_device(fn, reps: int = 3) -> dict:
                     for k, ms, n in kernels[:8]]}
 
 
+def replay_kernels(fn) -> dict[str, int]:
+    """The port's kernels, by name and launch count, in one profiled call
+    of ``fn`` (after one unprofiled call, so a compiled ``fn`` replays)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    pattern = re.compile(r"::(" + "|".join(KERNELS) + r")[(<]")
+    found: dict[str, int] = {}
+    for e in prof.key_averages():
+        m = pattern.search(e.key)
+        if m and str(e.device_type).endswith("CUDA"):
+            found[m.group(1)] = found.get(m.group(1), 0) + e.count
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -837,7 +1294,7 @@ def main() -> int:
     from repro_torch.core.crossbar import mlp_forward, paper_backprop_step
     from repro_torch.kernels import _build, crossbar as xbk, ops
     from repro_torch.launch.chipsim import build_chip
-    from repro_torch.sim import chip as chip_mod
+    from repro_torch.sim import chip as chip_mod, compiled as csim
 
     t_start = time.perf_counter()
     card = card_line()
@@ -862,12 +1319,15 @@ def main() -> int:
     t0 = time.perf_counter()
     max_err, rows = kernel_phase(xbk, ops, gen)
     train_err, train_rows = train_kernel_phase(xbk, ops, gen)
+    fused_err, fused_rows = fused_kernel_phase(xbk, ops, gen)
     phase_s["kernel phases"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
-    # -- recognition path: the counts start at 0 and are read after
-    mnist = build_chip("mnist_class", seed=SEED, device="cuda")
-    isolet = build_chip("isolet_class", seed=SEED, device="cuda")
+    # -- eager recognition path: the counts start at 0 and are read after
+    mnist = build_chip("mnist_class", seed=SEED, device="cuda",
+                       compiled=False)
+    isolet = build_chip("isolet_class", seed=SEED, device="cuda",
+                        compiled=False)
     x16 = uniform((16, 784), -0.5, 0.5, gen)
     x4096 = uniform((4096, 784), -0.5, 0.5, gen)
     x_iso = uniform((256, 617), -0.5, 0.5, gen)
@@ -877,8 +1337,8 @@ def main() -> int:
     out4096, stream = run_wave(mnist, x4096, ops, 5)
     out_iso, stream_iso = run_wave(isolet, x_iso, ops, 9)
     launches = ops.crossbar_fwd_stacked.launches + ops.crossbar_fwd.launches
-    print(f"recognition path: {launches} kernel launches (mnist 5 + 5, "
-          f"isolet 9)")
+    print(f"eager recognition path: {launches} kernel launches (mnist 5 + "
+          f"5, isolet 9)")
 
     # -- correctness of what came out
     flips = {
@@ -899,81 +1359,137 @@ def main() -> int:
         cmp_ = check_report(chip, hw)
         print(f"{chip.name}: beat {chip.beat_us:.4f} us, hw_model rel err "
               + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
+    phase_s["eager recognition path"] = time.perf_counter() - t0
 
-    phase_s["recognition path"] = time.perf_counter() - t0
+    # -- compiled recognition path
+    t0 = time.perf_counter()
+    rec_chips, rec_launches = compiled_recognition(
+        ops, csim, build_chip, mlp_forward, hw,
+        {"mnist_class": mnist, "isolet_class": isolet},
+        [("mnist_class", x16, out16), ("mnist_class", x4096, out4096),
+         ("isolet_class", x_iso, out_iso)])
+    phase_s["compiled recognition path"] = time.perf_counter() - t0
 
-    # -- training path and crossbar_apply(use_kernel=True) path
+    # -- training paths and crossbar_apply(use_kernel=True) path
     t0 = time.perf_counter()
     train_launches = train_path(ops, chip_mod, build_chip, PAPER_SPEC,
                                 paper_backprop_step, hw, gen)
-    phase_s["training path"] = time.perf_counter() - t0
+    phase_s["eager training path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctrain_launches = compiled_train_path(ops, csim, chip_mod, build_chip,
+                                          PAPER_SPEC, hw, gen)
+    phase_s["compiled training path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     apply_launches, apply_err = apply_path(ops, mnist.layers(), PAPER_SPEC,
                                            gen)
     phase_s["crossbar_apply path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
-    # -- wave and step times (device events, after warm-up)
-    mnist_ms = cuda_ms(lambda: mnist.infer(x4096, count=False), iters=10)
-    iso_ms = cuda_ms(lambda: isolet.infer(x_iso, count=False), iters=10)
-    t0 = time.perf_counter()
+    # -- wave and step times (device events, after warm-up), compiled
+    # beside eager in this one run
+    t4096 = uniform((4096, 10), -0.5, 0.5, gen)
+    t_iso = uniform((256, 26), -0.5, 0.5, gen)
+    times = {}
+    for mode, chips in (("eager", {"mnist_class": mnist,
+                                   "isolet_class": isolet}),
+                        ("compiled", rec_chips)):
+        times[f"{mode} wave mnist_class x4096 ms"] = cuda_ms(
+            lambda: chips["mnist_class"].infer(x4096, count=False), iters=10)
+        times[f"{mode} wave isolet_class x256 ms"] = cuda_ms(
+            lambda: chips["isolet_class"].infer(x_iso, count=False),
+            iters=10)
+    steppers = {
+        mode: {app: build_chip(app, seed=SEED, device="cuda",
+                               compiled=mode == "compiled")
+               for app in ("mnist_class", "isolet_class")}
+        for mode in ("eager", "compiled")}
+    for mode, st in steppers.items():
+        times[f"{mode} step mnist_class x4096 ms"] = cuda_ms(
+            lambda: st["mnist_class"].train_step(x4096, t4096, lr=LR),
+            iters=5, warmup=2)
+        times[f"{mode} step isolet_class x256 ms"] = cuda_ms(
+            lambda: st["isolet_class"].train_step(x_iso, t_iso, lr=LR),
+            iters=5, warmup=2)
+    t1 = time.perf_counter()
     mnist.infer_stream(x16)
     torch.cuda.synchronize()
-    host16_ms = (time.perf_counter() - t0) * 1e3
-    print(f"waves: mnist_class 4096 samples {mnist_ms:.3f} ms "
-          f"({4096 / mnist_ms * 1e3:.0f} samples/s), isolet_class 256 "
-          f"samples {iso_ms:.3f} ms, mnist 16-sample infer_stream "
-          f"{host16_ms:.3f} ms host wall [{card}]")
-    stepper = build_chip("mnist_class", seed=SEED, device="cuda")
-    t4096 = uniform((4096, 10), -0.5, 0.5, gen)
-    step_ms = cuda_ms(lambda: stepper.train_step(x4096, t4096, lr=LR),
-                      iters=5, warmup=2)
-    iso_stepper = build_chip("isolet_class", seed=SEED, device="cuda")
-    t_iso = uniform((256, 26), -0.5, 0.5, gen)
-    iso_step_ms = cuda_ms(
-        lambda: iso_stepper.train_step(x_iso, t_iso, lr=LR), iters=5,
-        warmup=2)
-    print(f"training: one mnist_class train_step at batch 4096 "
-          f"{step_ms:.3f} ms ({4096 / step_ms * 1e3:.0f} samples/s), one "
-          f"isolet_class train_step at batch 256 {iso_step_ms:.3f} ms "
-          f"[{card}]")
-    print("kernel shapes (M=4096): " + json.dumps(rows + train_rows))
-    print("profile, mnist_class 4096-sample wave (profiler on): "
-          + json.dumps(profile_device(
-              lambda: mnist.infer(x4096, count=False))))
-    print("profile, mnist_class train_step at batch 4096 (profiler on): "
-          + json.dumps(profile_device(
-              lambda: stepper.train_step(x4096, t4096, lr=LR))))
+    times["eager infer_stream mnist_class x16 host wall ms"] = \
+        (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    rec_chips["mnist_class"].infer_stream(x16)
+    torch.cuda.synchronize()
+    times["compiled infer_stream mnist_class x16 host wall ms"] = \
+        (time.perf_counter() - t1) * 1e3
+    print(f"times [{card}]: " + json.dumps(times))
+    print(f"samples/s: mnist wave x4096 eager "
+          f"{4096 / times['eager wave mnist_class x4096 ms'] * 1e3:.0f}, "
+          f"compiled "
+          f"{4096 / times['compiled wave mnist_class x4096 ms'] * 1e3:.0f};"
+          f" mnist step x4096 eager "
+          f"{4096 / times['eager step mnist_class x4096 ms'] * 1e3:.0f}, "
+          f"compiled "
+          f"{4096 / times['compiled step mnist_class x4096 ms'] * 1e3:.0f}")
+    print("kernel shapes (M=4096): "
+          + json.dumps(rows + train_rows + fused_rows))
+    cstep = steppers["compiled"]["mnist_class"]
+    kernels = replay_kernels(
+        lambda: cstep.train_step(x4096, t4096, lr=LR))
+    if kernels != {"crossbar_fwd": 4, "crossbar_train": 4}:
+        raise AssertionError(f"a profiled replay of the compiled mnist step "
+                             f"ran the port's kernels {kernels}, expected "
+                             f"4 crossbar_fwd + 4 crossbar_train")
+    print("profiled replay of one compiled mnist_class step: port kernels "
+          + json.dumps(kernels))
+    for what, fn in (
+            ("eager mnist_class 4096-sample wave",
+             lambda: mnist.infer(x4096, count=False)),
+            ("compiled mnist_class 4096-sample wave",
+             lambda: rec_chips["mnist_class"].infer(x4096, count=False)),
+            ("eager mnist_class train_step at batch 4096",
+             lambda: steppers["eager"]["mnist_class"].train_step(
+                 x4096, t4096, lr=LR)),
+            ("compiled mnist_class train_step at batch 4096",
+             lambda: cstep.train_step(x4096, t4096, lr=LR))):
+        print(f"profile, {what} (profiler on): "
+              + json.dumps(profile_device(fn)))
 
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
         "crossbar_fwd": ([fwd_rows[s] for s in WAVE_SHAPES["mnist_class"]],
-                         "the 5 launches of one mnist_class wave at M=4096"),
+                         "the 5 launches of one eager mnist_class wave at "
+                         "M=4096"),
         "crossbar_bwd": (step_rows(train_rows, "crossbar_bwd"),
-                         "the 4 launches of one mnist_class training step "
-                         "at M=4096"),
+                         "the 4 launches of one eager mnist_class training "
+                         "step at M=4096"),
         "pulse_update": (step_rows(train_rows, "pulse_update"),
-                         "the 4 launches of one mnist_class training step "
-                         "at M=4096"),
+                         "the 4 launches of one eager mnist_class training "
+                         "step at M=4096"),
         "crossbar_dw": ([r for r in train_rows if r.get("codes")],
                         "the 4 launches of crossbar_apply(use_kernel=True)'s "
                         "backward through mnist's layers at M=4096, int8 "
                         "codes"),
+        "crossbar_train": (step_rows(fused_rows, "crossbar_train"),
+                           "the 4 launches of one compiled mnist_class "
+                           "training step at M=4096"),
     }
     counted = {
         "crossbar_fwd": launches + train_launches["crossbar_fwd_stacked"]
-        + apply_launches["crossbar_fwd"],
+        + apply_launches["crossbar_fwd"]
+        + rec_launches["crossbar_fwd_stacked"]
+        + ctrain_launches["crossbar_fwd_stacked"],
         "crossbar_bwd": train_launches["crossbar_bwd_stacked"]
         + apply_launches["crossbar_bwd"],
         "crossbar_dw": apply_launches["crossbar_dw"],
         "pulse_update": train_launches["pulse_update_stacked"],
+        "crossbar_train": ctrain_launches["crossbar_train_stacked"],
     }
-    errs = {"crossbar_fwd": max_err, **train_err}
+    errs = {"crossbar_fwd": max_err, **train_err,
+            "crossbar_train": fused_err}
     errs["crossbar_bwd"] = max(errs["crossbar_bwd"], apply_err)
     errs["crossbar_dw"] = max(errs["crossbar_dw"], apply_err)
     replaces = {"crossbar_fwd": 84, "crossbar_bwd": 145, "crossbar_dw": 207,
-                "pulse_update": 403}
+                "pulse_update": 403, "crossbar_train": 308}
     entries = []
     for name in KERNELS:
         timed, what = by_kernel[name]

@@ -18,6 +18,7 @@ hold the stochastic form to its distribution, not to the reference's draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -35,11 +36,21 @@ def _round(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
     return torch.floor(x + noise)
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(v: float, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``v`` rounded once to a 0-d tensor of ``dtype`` on ``device``, made
+    once per (value, dtype, device) and reused: an operation with it is one
+    IEEE operation on every device (a Python-float divisor may become a
+    reciprocal multiply on CUDA).  Making it copies from the host, which a
+    CUDA-graph capture forbids, so the step's constants are all made before
+    a capture, by the run that precedes it.  Callers never write to it."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d tensor of ``like``'s dtype: dividing by it is an IEEE division
-    on every device (a Python-float divisor may become a reciprocal
-    multiply on CUDA)."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """``v`` as a cached 0-d constant of ``like``'s dtype and device."""
+    return device_constant(float(v), like.dtype, like.device)
 
 
 # ---------------------------------------------------------------------------

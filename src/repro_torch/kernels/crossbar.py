@@ -14,11 +14,14 @@ every core ``t``:
   (Eq. 6, batch-summed);
 * pulse update (``pulse_update_kernel``, III.F step 3):
   ``dw = clip(rint(2 lr (xs[t]^T @ ds[t]) / u), +-levels) * u`` with
-  ``u = max_dw / levels``, and ``g± <- clip(g± ± dw/2, 0, w_max)``.
+  ``u = max_dw / levels``, and ``g± <- clip(g± ± dw/2, 0, w_max)``;
+* fused training step (``crossbar_train_kernel``, the compiled step's
+  per-stage body): ``y[t]`` (forward without activation, optional), the
+  error backprop ``dx[t]`` and the pulse update of ``g±`` in one launch.
 
-In bwd and dw, ``d`` is either fp32 values or integer sign-magnitude error
-codes with a 0-d fp32 ``dy_scale`` (the paper's 8-bit links), dequantized
-as ``code * scale`` before the product.
+In bwd, dw and the fused kernel, ``d`` is either fp32 values or integer
+sign-magnitude error codes with a 0-d fp32 ``dy_scale`` (the paper's 8-bit
+links), dequantized as ``code * scale`` before the product.
 
 * each ``*_kernel`` launches the hand-written CUDA kernel
   (``csrc/<name>.cu``, fp32, sm_90a) on CUDA tensors and raises on anything
@@ -37,9 +40,14 @@ import functools
 
 import torch
 
+from repro_torch.core.quantization import device_constant
+
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y / gridDim.z
+MAX_GRID_X = 2 ** 31 - 1  # ... and on gridDim.x
 BLOCK_M = 64             # fwd / bwd: samples per block (BM in the sources)
 BLOCK_K_DW = 32          # dw / pulse: fan-in lines per block (BK)
+BLOCK_K_TRAIN = 8        # fused kernel: fan-in lines per update block (UBK)
+MAX_N_TRAIN = 128        # fused kernel: columns an update block holds (NMAX)
 # dy element types the bwd and dw kernels read (dy_kind in the sources)
 _DY_KINDS = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 
@@ -50,10 +58,10 @@ def _adc_scale(adc_bits: int, adc_range: float) -> float:
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    """``v`` rounded once to a 0-d fp32 tensor on ``like``'s device: an
-    operation with it is one IEEE fp32 operation on every device (a
-    Python-float divisor may become a reciprocal multiply on CUDA)."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """``v`` rounded once to a cached 0-d fp32 constant on ``like``'s
+    device: an operation with it is one IEEE fp32 operation on every device
+    (a Python-float divisor may become a reciprocal multiply on CUDA)."""
+    return device_constant(float(v), torch.float32, like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -97,16 +105,27 @@ def crossbar_dw_plain(xs: torch.Tensor, dys: torch.Tensor, *,
     return torch.matmul(xs.transpose(-1, -2), _dequant(dys, dy_scale))
 
 
-def pulse_counts_plain(xs: torch.Tensor, ds: torch.Tensor, *, lr: float,
-                       max_dw: float, levels: int) -> torch.Tensor:
+def _two_lr(lr: float | torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """fp32(2 lr) as a 0-d tensor: a Python ``lr`` is doubled in double and
+    rounded once; a one-element fp32 tensor is doubled in fp32, which is
+    exact, so both give the same value for the same double ``lr``."""
+    if isinstance(lr, torch.Tensor):
+        return 2.0 * lr.reshape(())
+    return _f32(2.0 * lr, like)
+
+
+def pulse_counts_plain(xs: torch.Tensor, ds: torch.Tensor, *,
+                       lr: float | torch.Tensor, max_dw: float,
+                       levels: int) -> torch.Tensor:
     """The unrounded pulse counts ``2 lr (xs^T @ ds) / u`` (T, K, N), with
     fp32(2 lr) and fp32(u) rounded once, as the kernel forms them."""
     acc = torch.matmul(xs.transpose(-1, -2), ds)
-    return _f32(2.0 * lr, acc) * acc / _f32(max_dw / levels, acc)
+    return _two_lr(lr, acc) * acc / _f32(max_dw / levels, acc)
 
 
 def pulse_update_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
-                       xs: torch.Tensor, ds: torch.Tensor, *, lr: float,
+                       xs: torch.Tensor, ds: torch.Tensor, *,
+                       lr: float | torch.Tensor,
                        max_dw: float = 0.05, levels: int = 128,
                        w_max: float = 1.0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,6 +136,35 @@ def pulse_update_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
     half = 0.5 * (counts * _f32(max_dw / levels, counts))
     return (torch.clamp(g_plus + half, 0.0, w_max),
             torch.clamp(g_minus - half, 0.0, w_max))
+
+
+def _zero_ys(T: int, M: int, N: int, like: torch.Tensor) -> torch.Tensor:
+    """The ``ys`` of a fused step without the forward: zeros, as a
+    broadcast view of one cached 0-d constant (nothing is written)."""
+    return _f32(0.0, like).expand(T, M, N)
+
+
+def crossbar_train_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
+                         xs: torch.Tensor, ds: torch.Tensor, *,
+                         lr: float | torch.Tensor,
+                         dy_scale: torch.Tensor | None = None,
+                         max_dw: float = 0.05, levels: int = 128,
+                         w_max: float = 1.0, compute_y: bool = False
+                         ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version: g± (T, K, N); xs (T, M, K); ds (T, M, N) ->
+    (ys (T, M, N), dxs (T, M, K), g+', g-').
+
+    ``ys = xs @ (G+ - G-)`` when ``compute_y``, else zeros; ``dxs`` and the
+    pulse update use the dequantized ``ds``.  ``lr`` is a Python float or a
+    one-element fp32 tensor."""
+    d = _dequant(ds, dy_scale)
+    w = g_plus - g_minus
+    T, M, N = d.shape
+    ys = torch.matmul(xs, w) if compute_y else _zero_ys(T, M, N, d)
+    dxs = torch.matmul(d, w.transpose(-1, -2))
+    gp, gm = pulse_update_plain(g_plus, g_minus, xs, d, lr=lr,
+                                max_dw=max_dw, levels=levels, w_max=w_max)
+    return ys, dxs, gp, gm
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +182,8 @@ def _launch_fn(name: str):
         "crossbar_bwd": [ptr, i32] + [ptr] * 4 + [i32] * 4 + [ptr],
         "crossbar_dw": [ptr, ptr, i32, ptr, ptr] + [i32] * 4 + [ptr],
         "pulse_update": [ptr] * 6 + [i32] * 4 + [f32] * 4 + [ptr],
+        "crossbar_train": ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
+                           + [f32] * 3 + [ptr]),
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -279,3 +329,57 @@ def pulse_update_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
          gm.data_ptr(), T, M, K, N, 2.0 * lr, max_dw / levels,
          float(levels), w_max)
     return gp, gm
+
+
+def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
+                          xs: torch.Tensor, ds: torch.Tensor, *,
+                          lr: float | torch.Tensor,
+                          dy_scale: torch.Tensor | None = None,
+                          max_dw: float = 0.05, levels: int = 128,
+                          w_max: float = 1.0, compute_y: bool = False
+                          ) -> tuple[torch.Tensor, ...]:
+    """Launch the fused CUDA kernel: g± (T, K, N); xs (T, M, K); ds
+    (T, M, N) -> (ys, dxs, g+', g-') as :func:`crossbar_train_plain`, the
+    new conductances in fresh tensors (the kernel's dx blocks read g±
+    while its update blocks write).
+
+    ``ds`` is fp32, or int8/int32 error codes with a one-element fp32
+    ``dy_scale``; ``lr`` is a one-element fp32 tensor on the same device
+    (read by the kernel, so a CUDA graph replays with a new value) or a
+    Python float (rounded once to a cached fp32 constant).  ``max_dw /
+    levels`` is formed in double and rounded once to fp32."""
+    kind = _dy_kind(ds, dy_scale)
+    for name, t in (("g_plus", g_plus), ("g_minus", g_minus), ("xs", xs)):
+        _check_operand(name, t, ds)
+    T, M, N = ds.shape
+    K = g_plus.shape[1]
+    _check_shapes({"g_plus": (T, K, N), "g_minus": (T, K, N),
+                   "xs": (T, M, K)},
+                  {"ds": ds, "g_plus": g_plus, "g_minus": g_minus, "xs": xs})
+    _check_grid(T, 1, M=M, K=K, N=N)
+    if N > MAX_N_TRAIN:
+        raise ValueError(f"the fused kernel holds at most {MAX_N_TRAIN} "
+                         f"columns per core, got N={N}")
+    per_core = (-(-K // BLOCK_K_TRAIN)
+                + -(-K // BLOCK_M) * -(-M // BLOCK_M))   # update + dx
+    if compute_y:
+        per_core += -(-N // BLOCK_M) * -(-M // BLOCK_M)
+    if T * per_core > MAX_GRID_X:   # one-dimensional grid over the stack
+        raise ValueError(f"grid too large: M={M}, K={K}, N={N}")
+    if not isinstance(lr, torch.Tensor):
+        lr = _f32(lr, ds)
+    if lr.device != ds.device or lr.numel() != 1 \
+            or lr.dtype != torch.float32:
+        raise ValueError("lr must be a float or one fp32 value on ds's "
+                         "device")
+    gp, gm = torch.empty_like(g_plus), torch.empty_like(g_minus)
+    dxs = torch.empty((T, M, K), dtype=torch.float32, device=ds.device)
+    ys = (torch.empty((T, M, N), dtype=torch.float32, device=ds.device)
+          if compute_y else _zero_ys(T, M, N, ds))
+    _run("crossbar_train", ds.device, g_plus.data_ptr(), g_minus.data_ptr(),
+         xs.data_ptr(), ds.data_ptr(), kind,
+         None if dy_scale is None else dy_scale.data_ptr(), lr.data_ptr(),
+         ys.data_ptr() if compute_y else None, dxs.data_ptr(),
+         gp.data_ptr(), gm.data_ptr(), T, M, K, N, int(compute_y),
+         max_dw / levels, float(levels), w_max)
+    return ys, dxs, gp, gm

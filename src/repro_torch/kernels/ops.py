@@ -16,10 +16,13 @@ path went through the kernel.
 backward runs the bwd and dw kernels, on 8-bit error codes when
 ``error_quant``.
 
+``crossbar_train_stacked`` is the fused per-stage training step (bwd +
+dw + pulse update, optionally the forward) on one launch: the compiled
+step's per-stage body (``repro_torch.sim.compiled``).
+
 Not ported yet (ROADMAP): the TPU block autotuner, the tuned-block table
 and the conductance pad cache (reference ``ops.py:60-255``), which tile for
-the TPU's VMEM; the fused per-stage training wrapper
-(``crossbar_train_stacked``) and the k-means and attention wrappers.
+the TPU's VMEM; the k-means and attention wrappers.
 """
 from __future__ import annotations
 
@@ -31,11 +34,10 @@ from repro_torch.kernels import crossbar as xbk
 
 def _dispatch(wrapper, name: str, *tensors, **kwargs):
     """Run ``name`` on core stacks: its plain version when every tensor
-    (``dy_scale`` included) lies on the CPU, else its CUDA kernel on
-    contiguous operands, counted on ``wrapper.launches``."""
-    scale = kwargs.get("dy_scale")
-    if all(t.device.type == "cpu" for t in tensors + (scale,)
-           if t is not None):
+    (``dy_scale`` and a tensor ``lr`` included) lies on the CPU, else its
+    CUDA kernel on contiguous operands, counted on ``wrapper.launches``."""
+    extra = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
+    if all(t.device.type == "cpu" for t in list(tensors) + extra):
         return getattr(xbk, f"{name}_plain")(*tensors, **kwargs)
     out = getattr(xbk, f"{name}_kernel")(
         *(t.contiguous() for t in tensors), **kwargs)
@@ -259,3 +261,47 @@ def pulse_update_stacked(g_plus: torch.Tensor, g_minus: torch.Tensor,
 
 
 pulse_update_stacked.launches = 0
+
+
+def crossbar_train_stacked(g_plus: torch.Tensor, g_minus: torch.Tensor,
+                           xs: torch.Tensor, deltas: torch.Tensor, *,
+                           lr: float | torch.Tensor,
+                           dy_scale: torch.Tensor | None = None,
+                           max_dw: float = 0.05, levels: int = 128,
+                           w_max: float = 1.0, compute_y: bool = False,
+                           inplace: bool = False
+                           ) -> tuple[torch.Tensor, ...]:
+    """Fused per-stage training step over a core stack, one launch.
+
+    xs (T, M, K); deltas (T, M, N); g± (T, K, N) ->
+        (ys (T, M, N), dxs (T, M, K), g+', g-').
+
+    Runs what the four-call path (`crossbar_fwd_stacked` +
+    `crossbar_bwd_stacked` + `crossbar_dw_stacked` + the pulse update)
+    launches separately; on the card it equals that sequence bit for bit
+    (the kernel sums in the standalone kernels' orders).  ``ys`` is the
+    forward product when ``compute_y``, else zeros.  ``dy_scale`` selects
+    the 8-bit sign-magnitude error path (codes in ``deltas``, dequantized
+    in-kernel).  ``lr`` is a Python float or a one-element fp32 tensor on
+    the operands' device, which a CUDA graph reads at replay.  ``inplace``
+    copies the new conductances into ``g_plus``/``g_minus`` (the kernel
+    itself writes fresh tensors) and returns them.  A leading chip axis
+    folds like :func:`crossbar_fwd_stacked`.  This is the compiled training
+    step's per-stage body.
+    """
+    targets = (g_plus, g_minus)
+    (g_plus, g_minus, xs, deltas), unfold = _fold_chip_axis(
+        g_plus, g_minus, xs, deltas)
+    ys, dxs, gp, gm = _dispatch(
+        crossbar_train_stacked, "crossbar_train", g_plus, g_minus, xs,
+        deltas, lr=lr, dy_scale=dy_scale, max_dw=max_dw, levels=levels,
+        w_max=w_max, compute_y=compute_y)
+    gp, gm = unfold(gp), unfold(gm)
+    if inplace:
+        targets[0].copy_(gp)
+        targets[1].copy_(gm)
+        gp, gm = targets
+    return unfold(ys), unfold(dxs), gp, gm
+
+
+crossbar_train_stacked.launches = 0

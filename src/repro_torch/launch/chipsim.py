@@ -15,7 +15,9 @@ runs ``--train-steps`` on-chip training steps (default 1), and prints
 time/energy/throughput from the *measured* simulator counters — including
 the cross-validation against `core/hw_model.py` (exits with an error above
 1%) and the energy-vs-K20 comparison.  Runs on ``--device cuda`` unless
-told otherwise.  Fault injection waits for a later slice of the port.
+told otherwise, through the chip's default compiled executor (one captured
+CUDA graph per wave and step shape).  Fault injection waits for a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -31,18 +33,19 @@ from repro_torch.sim import VirtualChip
 
 
 def build_chip(app: str, *, share_small_layers: bool = False,
-               seed: int = 0,
-               device: str | torch.device = "cuda") -> VirtualChip:
+               seed: int = 0, device: str | torch.device = "cuda",
+               compiled: bool = True) -> VirtualChip:
     """A VirtualChip holding ``app``'s Table I network with random
     conductances drawn from ``seed`` (on the CPU, so every device gets the
-    same weights)."""
+    same weights); ``compiled=False`` gives the eager per-stage chip."""
     dims = NETWORKS[app]
     gen = torch.Generator().manual_seed(seed)
     layers = [xb.init_conductances(f, o, PAPER_SPEC, generator=gen,
                                    device=device)
               for f, o in zip(dims, dims[1:])]
     return VirtualChip(layers, PAPER_SPEC, name=app,
-                       share_small_layers=share_small_layers, device=device)
+                       share_small_layers=share_small_layers, device=device,
+                       compiled=compiled)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -1,8 +1,7 @@
 """VirtualChip: execute networks on the simulated multicore grid.
 
-Port of ``repro.sim.chip`` (its eager per-stage path).  A chip is a
-`Placement` (stacked per-core conductances, one stage per layer) plus
-counters; it runs:
+Port of ``repro.sim.chip``.  A chip is a `Placement` (stacked per-core
+conductances, one stage per layer) plus counters; it runs:
 
   * ``infer``        — one wave through the stages, serialized-latency
                        semantics (the analytic model's recognition pass);
@@ -14,16 +13,22 @@ counters; it runs:
                        the same conductances), update (pulse-discretized
                        outer product written into the stacks).
 
-Every stage executes as ONE launch of a hand-written kernel over its core
-stack: the forward through `kernels/ops.crossbar_fwd_stacked` (a Fig.-14
-aggregation stage is one more launch inside its layer's time slot), the
-backward through `crossbar_bwd_stacked` and the update through
-`pulse_update_stacked`.  `infer` equals `core.crossbar.mlp_forward`,
-`train_step` equals `core.crossbar.paper_backprop_step`, and the counters
+By default (``compiled=True``, as the reference's default) each hot loop
+runs through the compiled executor (`repro_torch.sim.compiled`): the
+stages padded into one `StageStacks` envelope, the wave and the step each
+one captured CUDA graph per (topology, batch) on the card, one
+`crossbar_fwd_stacked` launch per stage and, in a step, one fused
+`crossbar_train_stacked` launch per stage that updates the envelope in
+place.  ``compiled=False`` is the eager per-stage path, the differential
+baseline: the forward through `kernels/ops.crossbar_fwd_stacked` (a
+Fig.-14 aggregation stage is one more launch inside its layer's time
+slot), the backward through `crossbar_bwd_stacked` and the update through
+`pulse_update_stacked`.  Both give `infer` equal to
+`core.crossbar.mlp_forward` and `train_step` equal to
+`core.crossbar.paper_backprop_step`, with identical counters that
 reproduce `hw_model`'s analytic time/energy to <= 1%.
 
-Not ported yet (ROADMAP Queue 1): the compiled executor with its
-``StageStacks`` envelope and CUDA-graph capture, and fault injection.
+Not ported yet (ROADMAP Queue 1): fault injection.
 
 Counting conventions (shared with the analytic model):
   * an aggregation sub-stage executes inside its layer's slot; its cores
@@ -44,8 +49,10 @@ from repro_torch.core.crossbar import (CORE_COLS, CORE_ROWS, CrossbarSpec,
                                        hard_sigmoid, hard_sigmoid_deriv)
 from repro_torch.core.mapping import map_network
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.sim import compiled as csim
 from repro_torch.sim.noc import NocTracker
-from repro_torch.sim.placer import (Placement, Stage, place_network,
+from repro_torch.sim.placer import (Placement, Stage, StageStacks,
+                                    build_stage_stacks, place_network,
                                     stage_dot_products, tile_inputs)
 from repro_torch.sim.report import PhaseCounters, SimReport
 
@@ -68,8 +75,10 @@ class VirtualChip:
                  name: str = "app", share_small_layers: bool = False,
                  input_bits: int = 8,
                  placement: Placement | None = None,
-                 faults=None, device: str | torch.device = "cuda"):
+                 faults=None, device: str | torch.device = "cuda",
+                 compiled: bool = True):
         self.device = resolve_device(device)
+        self.compiled = compiled
         if spec is None:
             from repro_torch.configs.paper_apps import PAPER_SPEC
             spec = PAPER_SPEC
@@ -93,13 +102,62 @@ class VirtualChip:
                                share_small_layers=share_small_layers)
             placement = place_network(layers, nmap, rows, cols)
         self.placement = placement
+        self._stacks: StageStacks | None = None   # compiled-path envelope
         self.infer_counters = PhaseCounters(
             noc=NocTracker(slot_cycles=placement.cols))
         self.train_counters = PhaseCounters(
             noc=NocTracker(slot_cycles=placement.cols))
 
     # ------------------------------------------------------------------
-    # Stage execution (one kernel launch per stage)
+    # Compiled whole-step executor (repro_torch.sim.compiled)
+    # ------------------------------------------------------------------
+
+    def _compiled_active(self) -> bool:
+        """Whether the compiled executor runs (``compiled=True``; the chip
+        refuses faults, which keep the reference on its eager path)."""
+        return self.compiled
+
+    def _get_stacks(self) -> StageStacks:
+        """The padded stage stack, rebuilt whenever the placement's
+        conductances were written outside the compiled step (a version
+        bump: an eager update)."""
+        if (self._stacks is None
+                or self._stacks.built_version != self.placement.version):
+            self._stacks = build_stage_stacks(self.placement)
+        return self._stacks
+
+    @property
+    def _cfg(self) -> csim.ChipConfig:
+        return csim.chip_config(self._get_stacks(), self.spec)
+
+    def _apply_fwd_counters(self, counters: PhaseCounters | None,
+                            fcnt: list[int], M: int) -> None:
+        """Fold the compiled wave's counters into `PhaseCounters` and
+        replay the static per-stage NoC records (the placement's routing
+        schedule)."""
+        if counters is None:
+            return
+        slots, steps = fcnt
+        counters.slots["fwd"] += slots
+        counters.core_steps["fwd"] += steps
+        st = self._get_stacks()
+        for s in range(st.S):
+            counters.noc.record(self.placement.stages[s].index,
+                                st.routed[s], st.links[s], M)
+
+    @staticmethod
+    def _apply_bwd_counters(counters: PhaseCounters | None,
+                            bcnt: list[int]) -> None:
+        if counters is None:
+            return
+        b_slots, b_steps, u_slots, u_steps = bcnt
+        counters.slots["bwd"] += b_slots
+        counters.core_steps["bwd"] += b_steps
+        counters.slots["update"] += u_slots
+        counters.core_steps["update"] += u_steps
+
+    # ------------------------------------------------------------------
+    # Stage execution, eager path (one kernel launch per stage)
     # ------------------------------------------------------------------
 
     def _stage_dp(self, st: Stage, h: torch.Tensor) -> torch.Tensor:
@@ -158,7 +216,13 @@ class VirtualChip:
         counters = None
         if count:
             counters = self.train_counters if train else self.infer_counters
-        return self._forward(x, counters, quantize_tail=quantize_tail)
+        if not self._compiled_active():
+            return self._forward(x, counters, quantize_tail=quantize_tail)
+        st = self._get_stacks()
+        acts_e, dps, h, fcnt = csim.chip_forward(st, x, quantize_tail,
+                                                 self._cfg)
+        self._apply_fwd_counters(counters, fcnt, x.shape[0])
+        return [a[:, 1:] for a in acts_e], dps, h
 
     # ------------------------------------------------------------------
     # Inference
@@ -168,8 +232,12 @@ class VirtualChip:
         """One recognition wave (serialized-latency semantics)."""
         x = self._input(x)
         counters = self.infer_counters if count else None
-        _, dps, _ = self._forward(x, counters)
-        out = hard_sigmoid(dps[-1])
+        if self._compiled_active():
+            out, fcnt = csim.chip_infer(self._get_stacks(), x, self._cfg)
+            self._apply_fwd_counters(counters, fcnt, x.shape[0])
+        else:
+            _, dps, _ = self._forward(x, counters)
+            out = hard_sigmoid(dps[-1])
         if count:
             M = x.shape[0]
             self.infer_counters.samples += M
@@ -223,14 +291,25 @@ class VirtualChip:
         quantizes it to 8-bit sign-magnitude (III.F step 1).  Returns the
         error that leaves the first stage toward the network input.
         ``global_batch`` is the learning-rate batch normalizer (defaults to
-        ``delta``'s batch).  Each stage's backward phase is one
-        ``crossbar_bwd_stacked`` launch and its update phase one
-        ``pulse_update_stacked`` launch; the new conductances are stored
-        with `Placement.set_stage_stacks`."""
+        ``delta``'s batch).  Compiled, the phases run as one program whose
+        fused kernel updates the envelope in place.  Eager, each stage's
+        backward phase is one ``crossbar_bwd_stacked`` launch and its
+        update phase one ``pulse_update_stacked`` launch; the new
+        conductances are stored with `Placement.set_stage_stacks`."""
         spec = self.spec
         M = delta.shape[0]
         B = M if global_batch is None else global_batch
         c = counters if counters is not None else self.train_counters
+
+        if self._compiled_active():
+            st = self._get_stacks()
+            delta_fin, bcnt = csim.chip_backward(
+                st, [self._input(a) for a in acts],
+                [self._input(d) for d in dps], self._input(delta),
+                self._cfg, lr_eff=float(lr) / B)
+            st.scatter_back(self.placement)
+            self._apply_bwd_counters(c, bcnt)
+            return delta_fin
 
         for si in reversed(range(len(self.placement.stages))):
             st = self.placement.stages[si]
@@ -278,14 +357,23 @@ class VirtualChip:
         target = self._input(target)
         M = x.shape[0]
         c = self.train_counters
-        acts, dps, _ = self._forward(x, c)
-        out = hard_sigmoid(dps[-1])
-        self.backward_update(acts, dps, target - out, lr, counters=c)
+        if self._compiled_active():
+            # the whole step is one program; the envelope updates in place
+            st = self._get_stacks()
+            err, fcnt, bcnt = csim.chip_train(st, x, target, self._cfg,
+                                              lr_eff=float(lr) / M)
+            st.scatter_back(self.placement)
+            self._apply_fwd_counters(c, fcnt, M)
+            self._apply_bwd_counters(c, bcnt)
+        else:
+            acts, dps, _ = self._forward(x, c)
+            err = target - hard_sigmoid(dps[-1])
+            self.backward_update(acts, dps, err, lr, counters=c)
 
         c.samples += M
         c.record_io(2 * self.placement.dims[0] * self.input_bits
                     + self.placement.dims[-1] * hw.ADC_BITS_OUT, M)
-        return target - out
+        return err
 
     # ------------------------------------------------------------------
     # Reporting

@@ -1,8 +1,7 @@
 """Placer: materialize a NetworkMap as stacked per-core conductance arrays.
 
-Port of ``repro.sim.placer`` (without ``StageStacks``/``sub_placement``,
-which wait for the compiled-executor and fabric slices).  Each network
-layer becomes one pipeline *stage*:
+Port of ``repro.sim.placer``.  Each network layer becomes one pipeline
+*stage*:
 
   * the layer's ``row_tiles x col_tiles`` core grid (section V.B) is stored
     as ONE stacked tensor ``(T, rows, cols)`` with ``T = row_tiles*col_tiles``
@@ -21,12 +20,16 @@ layer becomes one pipeline *stage*:
 
 The placement is mutable state: `Placement.set_stage_stacks` writes new
 stacks back and `Placement.extract_params` slices them back into the
-per-layer ``{"g_plus", "g_minus"}`` dicts.
+per-layer ``{"g_plus", "g_minus"}`` dicts.  `StageStacks` pads every stage
+into one envelope for the compiled executor (``repro_torch.sim.compiled``)
+and `sub_placement` cuts a contiguous stage slice out as its own placement.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.crossbar import CORE_COLS, CORE_ROWS
@@ -214,6 +217,205 @@ def _agg_pattern(r: int, cols: int, dtype: torch.dtype,
     ``i*cols + n`` (sub-neuron partial i of neuron n) feeds neuron n."""
     eye = torch.eye(cols, dtype=dtype, device=device)
     return eye.repeat(r, 1)                             # (r*cols, cols)
+
+
+def sub_placement(pl: Placement, stage_indices: tuple[int, ...]) -> Placement:
+    """A contiguous slice of a placement as its own (sub-)chip placement.
+
+    The stage list ALIASES the parent's `Stage` objects, so a slice's
+    updates write into the same stacks the parent placement (and its
+    `Placement.extract_params`) sees.  The sub-map re-derives placed cores
+    and routed outputs for the slice, so per-chip accounting stays
+    measured, not copied."""
+    if list(stage_indices) != list(range(stage_indices[0],
+                                         stage_indices[-1] + 1)):
+        raise ValueError(f"stage group {stage_indices} is not contiguous")
+    stages = [pl.stages[i] for i in stage_indices]
+    lms = tuple(pl.nmap.layers[i] for i in stage_indices)
+    routed = sum(lm.routed_outputs for lm in lms)
+    sub_nmap = NetworkMap(layers=lms,
+                          cores=sum(lm.placed_cores for lm in lms),
+                          routed_outputs=routed, routing_cycles=routed)
+    dims = (lms[0].fan_in,) + tuple(lm.fan_out for lm in lms)
+    return Placement(stages=stages, dims=dims, rows=pl.rows, cols=pl.cols,
+                     nmap=sub_nmap)
+
+
+# ---------------------------------------------------------------------------
+# StageStacks: the padded ragged stage stack of the compiled executor
+# ---------------------------------------------------------------------------
+
+class StageMaps(NamedTuple):
+    """One stage's own slice of the `StageStacks` index maps, with which the
+    compiled executor launches on the stage's ``T`` cores (never on the
+    padded ``T_max``), so no launch shape and no sum depends on the
+    envelope.  Every index addresses a real element: lanes past the stage's
+    fan-out read the one zero slot appended to the local error."""
+    T: int               # cores of the stage's grid (row_tiles*col_tiles)
+    r: int               # fan-in tiles
+    c: int               # fan-out tiles
+    fan_in: int
+    fan_out: int
+    cores: int           # billed cores (grid + aggregation)
+    in_idx: torch.Tensor     # (T*rows,) [0, x] -> core lines, 0 = bias slot
+    ds_idx: torch.Tensor     # (T*cols,) [local, 0] -> core columns
+    dp_idx: torch.Tensor     # (r, fan_out) core outputs -> dp lanes
+    fold_idx: torch.Tensor   # (r, c) cores summed per fan-in tile
+    prev_idx: torch.Tensor   # (fan_in,) folded dx lines -> upstream error
+
+
+@dataclasses.dataclass
+class StageStacks:
+    """All stages of a placement padded to one (T_max, rows, cols) envelope.
+
+    The port of the reference's compiled-executor layout, field for field:
+
+      * ``g_plus``/``g_minus`` — ``(S, T_max, rows, cols)`` fp32 conductance
+        stacks; cores beyond a stage's ``row_tiles*col_tiles`` grid are zero.
+        The compiled step updates them in place, and `scatter_back` makes
+        every `Stage` hold the view ``envelope[s, :T_s]`` (contiguous), so
+        kernel launches read and write the envelope's own memory;
+      * int64 index maps on the placement's device, built in numpy, with
+        the reference's always-zero slot convention: ``in_idx`` 0 is the
+        bias slot, ``ds_idx`` uses ``N_pad``, ``dp_idx`` ``T_max*cols``,
+        ``fold_idx`` ``T_max`` and ``prev_idx`` ``r_max*rows``;
+      * ``valid_out`` — ``(S, N_pad)`` output-lane validity (fp32 {0, 1});
+      * ``core_counts`` — per-stage billed cores.
+
+    ``stage_maps`` holds each stage's own slice of the maps (`StageMaps`),
+    which is what the port's stage loop indexes with; ``programs`` holds
+    the compiled programs built on this envelope (captured CUDA graphs bake
+    in its addresses, so they live and die with it).
+    """
+    S: int
+    T_max: int
+    r_max: int
+    c_max: int
+    rows: int
+    cols: int
+    L: int               # padded input-vector length (bias slot 0 + lanes)
+    N_pad: int           # padded output-lane count (max col_tiles*cols)
+    out_dim: int         # fan_out of the last stage
+    fan_in: tuple[int, ...]
+    fan_out: tuple[int, ...]
+    n_cores: tuple[int, ...]       # per-stage billed cores (grid + agg)
+    routed: tuple[int, ...]        # per-stage routed outputs (NoC record)
+    links: tuple[int, ...]         # per-stage emitting links (NoC record)
+    g_plus: torch.Tensor           # (S, T_max, rows, cols)
+    g_minus: torch.Tensor
+    in_idx: torch.Tensor           # (S, T_max, rows)  h_ext -> core lines
+    ds_idx: torch.Tensor           # (S, T_max, cols)  local_ext -> core cols
+    dp_idx: torch.Tensor           # (S, r_max, N_pad) ys_flat_ext -> dp lanes
+    fold_idx: torch.Tensor         # (S, r_max, c_max) dxs_ext core pick
+    prev_idx: torch.Tensor         # (S, N_pad)        dxg_flat_ext -> delta
+    valid_out: torch.Tensor        # (S, N_pad) float32 {0, 1}
+    core_counts: torch.Tensor      # (S,) int64
+    stage_maps: tuple[StageMaps, ...] = ()
+    built_version: int = -1
+    programs: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
+
+    def index_pytree(self) -> dict[str, torch.Tensor]:
+        """The index operands of the compiled programs, by name."""
+        return {"in_idx": self.in_idx, "ds_idx": self.ds_idx,
+                "dp_idx": self.dp_idx, "fold_idx": self.fold_idx,
+                "prev_idx": self.prev_idx, "valid_out": self.valid_out,
+                "core_counts": self.core_counts}
+
+    def scatter_back(self, pl: Placement) -> None:
+        """Point every `Stage` at its view of the envelope and mark the
+        placement clean; the aliasing contract of `sub_placement` keeps
+        holding because the Stage objects themselves are updated."""
+        for s, st in enumerate(pl.stages):
+            T = st.row_tiles * st.col_tiles
+            st.g_plus = self.g_plus[s, :T]
+            st.g_minus = self.g_minus[s, :T]
+        pl.version += 1
+        self.built_version = pl.version
+
+
+def build_stage_stacks(pl: Placement) -> StageStacks:
+    """Pad a placement's ragged stage list into a `StageStacks` envelope.
+
+    The index maps are built in numpy and moved once to the placement's
+    device as int64 tensors; the conductances are copied into a fresh
+    envelope."""
+    stages = pl.stages
+    S = len(stages)
+    rows, cols = pl.rows, pl.cols
+    device = stages[0].g_plus.device
+    rs = [st.row_tiles for st in stages]
+    cs = [st.col_tiles for st in stages]
+    Ts = [r * c for r, c in zip(rs, cs)]
+    T_max, r_max, c_max = max(Ts), max(rs), max(cs)
+    fan_in = tuple(st.lmap.fan_in for st in stages)
+    fan_out = tuple(st.lmap.fan_out for st in stages)
+    # output-lane envelope: wide enough for every stage's fan-out tiling
+    # AND every stage's fan-in (the upstream error rides the same lanes)
+    N_pad = max(max(c * cols for c in cs), max(fan_in))
+    L = 1 + N_pad
+
+    gp = torch.zeros((S, T_max, rows, cols), dtype=torch.float32,
+                     device=device)
+    gm = torch.zeros_like(gp)
+    for s, st in enumerate(stages):
+        gp[s, :Ts[s]] = st.g_plus
+        gm[s, :Ts[s]] = st.g_minus
+
+    in_idx = np.zeros((S, T_max, rows), np.int64)       # 0 = bias slot (=0)
+    ds_idx = np.full((S, T_max, cols), N_pad, np.int64)  # N_pad = zero col
+    dp_idx = np.full((S, r_max, N_pad), T_max * cols, np.int64)
+    fold_idx = np.full((S, r_max, c_max), T_max, np.int64)
+    prev_idx = np.full((S, N_pad), r_max * rows, np.int64)
+    valid = np.zeros((S, N_pad), np.float32)
+    for s in range(S):
+        r, c, F, O = rs[s], cs[s], fan_in[s], fan_out[s]
+        t = np.arange(Ts[s])
+        # input tiling (tile_inputs): core i*c+j line l <- global line
+        # i*rows + l of [bias, x, zeros]; lines past the payload stay on
+        # the always-zero bias slot.
+        g = (t[:, None] // c) * rows + np.arange(rows)[None, :]
+        in_idx[s, :Ts[s]] = np.where((g >= 1) & (g <= F), g, 0)
+        # fan-out tiling (_tile_cols): core i*c+j col k <- lane j*cols+k
+        ds_idx[s, :Ts[s]] = ((t[:, None] % c) * cols
+                             + np.arange(cols)[None, :])
+        # dp assembly: lane n sums partials ys[(i*c + n//cols)*cols
+        # + n%cols] over fan-in tiles i (exact aggregation, Fig. 14).
+        n = np.arange(O)
+        for i in range(r):
+            dp_idx[s, i, :O] = (i * c + n // cols) * cols + n % cols
+        # backward fan-in fold: group i sums dxs over its c fan-out tiles.
+        fold_idx[s, :r, :c] = (np.arange(r)[:, None] * c
+                               + np.arange(c)[None, :])
+        # upstream error: lane n <- global line n+1 of the folded dx
+        prev_idx[s, :F] = np.arange(F) + 1
+        valid[s, :O] = 1.0
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    maps = tuple(StageMaps(
+        T=Ts[s], r=rs[s], c=cs[s], fan_in=fan_in[s], fan_out=fan_out[s],
+        cores=stages[s].n_cores,
+        in_idx=dev(in_idx[s, :Ts[s]].reshape(-1)),
+        # lanes at or past the fan-out read the zero slot of [local, 0]
+        ds_idx=dev(np.minimum(ds_idx[s, :Ts[s]], fan_out[s]).reshape(-1)),
+        dp_idx=dev(dp_idx[s, :rs[s], :fan_out[s]]),
+        fold_idx=dev(fold_idx[s, :rs[s], :cs[s]]),
+        prev_idx=dev(prev_idx[s, :fan_in[s]])) for s in range(S))
+    return StageStacks(
+        S=S, T_max=T_max, r_max=r_max, c_max=c_max, rows=rows, cols=cols,
+        L=L, N_pad=N_pad, out_dim=fan_out[-1],
+        fan_in=fan_in, fan_out=fan_out,
+        n_cores=tuple(st.n_cores for st in stages),
+        routed=tuple(st.lmap.routed_outputs for st in stages),
+        links=tuple(st.g_plus.shape[0] for st in stages),
+        g_plus=gp, g_minus=gm,
+        in_idx=dev(in_idx), ds_idx=dev(ds_idx), dp_idx=dev(dp_idx),
+        fold_idx=dev(fold_idx), prev_idx=dev(prev_idx),
+        valid_out=dev(valid),
+        core_counts=dev(np.array([st.n_cores for st in stages], np.int64)),
+        stage_maps=maps, built_version=pl.version)
 
 
 def place_layer(index: int, params: dict[str, torch.Tensor], lmap: LayerMap,

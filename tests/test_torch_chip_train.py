@@ -63,7 +63,8 @@ def _uniform(seed, shape):
         -0.5, 0.5, shape).astype(np.float32)
 
 
-def _chips(name, spec_j=japps.PAPER_SPEC, spec_t=tapps.PAPER_SPEC):
+def _chips(name, spec_j=japps.PAPER_SPEC, spec_t=tapps.PAPER_SPEC,
+           **kw):
     c = CASES[name]
     key = jax.random.PRNGKey(c["seed"])
     jl = [jxb.init_conductances(jax.random.fold_in(key, i), f, o, spec_j)
@@ -71,7 +72,7 @@ def _chips(name, spec_j=japps.PAPER_SPEC, spec_t=tapps.PAPER_SPEC):
     np_layers = [{k: np.asarray(v) for k, v in p.items()} for p in jl]
     jchip = JaxChip(jl, spec_j, name=name, **c["grid"])
     tchip = VirtualChip(interop.layers_from_numpy(np_layers, "cpu"),
-                        spec_t, name=name, device="cpu", **c["grid"])
+                        spec_t, name=name, device="cpu", **c["grid"], **kw)
     return jchip, tchip
 
 
@@ -126,7 +127,8 @@ def _counters(c):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_train_step_matches_reference_chip(name, eager_reference):
-    jchip, tchip = _chips(name)
+    # eager against eager: the version count below is the eager path's
+    jchip, tchip = _chips(name, compiled=False)
     x, tgt = _batch(name)
     before = tchip.layers()
     counts = plain_counts(before, x, tgt, tapps.PAPER_SPEC, 0.1)
