@@ -9,9 +9,10 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and turns TF32
    off for every fp32 matmul and convolution;
-2. builds the five crossbar kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all started together) and prints the build time
-   and ptxas' register/spill report;
+2. builds the six kernels from ``src/repro_torch/kernels/csrc`` (five
+   crossbar kernels and the k-means assignment; one nvcc per source, all
+   started together) and prints the build time and ptxas' register/spill
+   report;
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
@@ -26,6 +27,11 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    against the four-call sequence (fwd without activation, bwd, pulse on
    the dequantized error) — and time each kernel, its plain version and
    ``torch.bmm`` for the same contraction at M = 4096 beside the bound;
+   and the k-means assignment kernel at the clustering path's shape (n =
+   2048, d = 20, k = 10), n = 60000, k = 26, the hardware core's 32 x 32,
+   the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
+   duplicated centers (exact ties go to the lowest index), timed beside its
+   plain version, ``torch.cdist(p=1).argmin`` and the bound;
 4. eager recognition path (``compiled=False``): ``build_chip`` for
    mnist_class at full width (784-300-200-100-10, 13 cores) runs
    ``infer_stream`` on 16 samples and on a 4096-sample wave, isolet_class
@@ -62,11 +68,22 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    8-bit error quantization, through ``crossbar_matmul`` (one bwd and one
    dw launch per layer), held layer by layer against the plain
    ``_xbar_matmul`` path on the same inputs;
-9. prints the wave and training-step times (CUDA events), compiled beside
-   eager, ``torch.profiler`` breakdowns of the waves and steps with the
-   device's idle share, the kernels of one profiled replay (the port's
-   kernels and only those), one ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+9. paper-apps path at full width, the k-means launch count set to 0
+   before and read after: ``mnist_like(2048)`` through ``pretrain_stack``
+   on Table I's mnist_dimred (784-300-200-100-20, PAPER_SPEC, 2 epochs;
+   depth not cut), ``encode`` to 20-d features, ``init_plusplus(k=10)`` and
+   ``kmeans_fit(epochs=15, use_kernel=True)`` (one launch), one more
+   ``assign(use_kernel=True)`` (one launch, equal to the first); the
+   kernel's assignment held against the plain ``assign``, inertia never
+   rising; then ``kdd_like(4096, 1024)`` through ``pretrain_layer`` on
+   kdd_anomaly (41-15-41, 3 epochs) and ``reconstruction_error`` on normal
+   and attack traffic, printing detection at 4 % FPR and AUC beside the
+   paper's 96.6 %, and each stage's time (CUDA events);
+10. prints the wave and training-step times (CUDA events), compiled beside
+    eager, ``torch.profiler`` breakdowns of the waves and steps with the
+    device's idle share, the kernels of one profiled replay (the port's
+    kernels and only those), one ``{"kernels": [...]}`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -76,7 +93,9 @@ only the samples downstream of such a flip may differ end to end.  Pulse
 counts may differ by one only where the plain unrounded count lies within
 1e-4 of a half-integer; there a conductance may differ by one half pulse
 (u/2 = 1.95e-4), everywhere else by at most 1e-6.  The fused kernel and
-the four-call sequence must agree exactly.  Any failure raises.
+the four-call sequence must agree exactly.  k-means assignments are
+equal, except where the two smallest distances of a sample (recomputed in
+float64) lie within 1e-5 relative of each other.  Any failure raises.
 """
 from __future__ import annotations
 
@@ -122,7 +141,7 @@ TRAIN_SHAPES = {
 # (K, N) of mnist's four layers: crossbar_apply(use_kernel=True) shapes
 MNIST_LAYERS = [(784, 300), (300, 200), (200, 100), (100, 10)]
 KERNELS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
-           "crossbar_train")
+           "crossbar_train", "kmeans_assign")
 # (chip, batch, lr) of the training main path, in order
 STEPS = ([("mnist_class", 1, LR)] * 2 + [("mnist_class", 1, LR / 2)]
          + [("mnist_class", 4096, LR)] * 2 + [("isolet_class", 256, LR)])
@@ -1234,6 +1253,185 @@ def apply_path(ops, layers, spec, gen) -> tuple[dict, float]:
     return launches, max_err
 
 
+# ---------------------------------------------------------------------------
+# k-means kernel phase and the paper-apps path (autoencoder dimensionality
+# reduction -> k-means -> anomaly detection)
+# ---------------------------------------------------------------------------
+
+FP32_INSTR_S = 33.5e12   # fp32 adds per second: half the 67 TFLOP/s FMA rate
+NEAR_TIE = 1e-5          # argmin flips allowed only where two distances are
+                         # this close (relative, recomputed in float64)
+# (n, d, k, what) of the kernel phase
+KMEANS_CASES = [
+    (2048, 20, 10, "clustering path (mnist_dimred features)"),
+    (60000, 20, 10, "MNIST training-set size"),
+    (2048, 20, 26, "isolet's 26 classes"),
+    (65536, 32, 32, "the hardware core's 32 x 32 limit"),
+    (65536, 128, 128, "the TPU tile limit"),
+    (513, 10, 5, "ragged"),
+    (4096, 20, 1, "k = 1"),
+    (4096, 20, 30, "duplicated centers (10 centers 3 times)"),
+]
+APPS_PRETRAIN_EPOCHS = 2   # mnist_dimred pretraining (depth not cut)
+APPS_ANOMALY_EPOCHS = 3    # kdd_anomaly pretraining
+
+
+def kmeans_bound(n, d, k) -> tuple[float, float]:
+    """(ms at the fp32 add rate, ms at the HBM rate) of one assignment:
+    2 n k d operations (subtract, add with |.| as a modifier); x, centers
+    read once, the int32 assignment written once."""
+    return (2.0 * n * k * d / FP32_INSTR_S * 1e3,
+            4.0 * (n * d + k * d + n) / HBM_BYTES_S * 1e3)
+
+
+def near_tie_flips(x, c, got, want, what) -> int:
+    """Assignments equal, except where the two smallest distances of a
+    sample (float64) lie within NEAR_TIE relative and each side picked
+    one of those two centers.  Returns the number of such samples."""
+    off = torch.nonzero(got.long() != want.long()).flatten()
+    if off.numel() == 0:
+        return 0
+    d = (x[off, None, :].double() - c[None, :, :].double()).abs().sum(-1)
+    two = torch.sort(d, dim=1).values[:, :2]
+    gap = (two[:, 1] - two[:, 0]) / two[:, 1].clamp(min=1e-30)
+    rows = torch.arange(off.numel(), device=x.device)
+    picked_ok = all(bool((d[rows, a[off].long()] <= two[:, 1]).all())
+                    for a in (got, want))
+    if bool((gap > NEAR_TIE).any()) or not picked_ok:
+        raise AssertionError(f"{what}: {off.numel()} assignments differ, "
+                             f"largest relative gap {float(gap.max()):.3e}")
+    return int(off.numel())
+
+
+def kmeans_kernel_phase(kmk, gen) -> tuple[int, list[dict]]:
+    """The k-means kernel against its plain version at KMEANS_CASES, timed
+    (CUDA events, and its device time under the profiler) beside the plain
+    version, ``torch.cdist(p=1).argmin`` and the bound; returns (near-tie
+    flips, rows).  Launches here are not counted."""
+    flips, rows = 0, []
+    for n, d, k, what in KMEANS_CASES:
+        x = uniform((n, d), -0.5, 0.5, gen)
+        if what.startswith("duplicated"):
+            c = x[:10].repeat(3, 1).contiguous()   # exact ties, rows of x
+        else:
+            c = uniform((k, d), -0.5, 0.5, gen)
+        got = kmk.kmeans_assign_kernel(x, c)
+        want = kmk.kmeans_assign_plain(x, c)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or got.shape != (n,):
+            raise AssertionError(f"kmeans_assign {what}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        case_flips = near_tie_flips(x, c, got, want,
+                                    f"kmeans_assign {what}")
+        if what.startswith("duplicated") and bool((got >= 10).any()):
+            raise AssertionError("kmeans_assign: an exact tie did not go to "
+                                 "the lowest index")
+        if k == 1 and bool((got != 0).any()):
+            raise AssertionError("kmeans_assign: k = 1 gave a nonzero index")
+        flips += case_flips
+        op_ms, byte_ms = kmeans_bound(n, d, k)
+        rows.append({
+            "kernel": "kmeans_assign", "n": n, "d": d, "k": k, "case": what,
+            "near_tie_flips": case_flips,
+            "ms": cuda_ms(lambda: kmk.kmeans_assign_kernel(x, c)),
+            "device_ms": next(
+                t["ms"] for t in profile_device(
+                    lambda: kmk.kmeans_assign_kernel(x, c), reps=20)["top"]
+                if "kmeans_assign" in t["kernel"]),
+            "plain_ms": cuda_ms(lambda: kmk.kmeans_assign_plain(x, c)),
+            "library_ms": cuda_ms(
+                lambda: torch.cdist(x, c, p=1).argmin(1)),
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes"})
+    print(f"kmeans kernel phase: {len(KMEANS_CASES)} cases, assignments "
+          f"equal to plain except {flips} near-tie flips (two distances "
+          f"within {NEAR_TIE} relative); exact ties to the lowest index")
+    return flips, rows
+
+
+def purity(assign: torch.Tensor, labels: torch.Tensor, k: int) -> float:
+    a, lab = assign.long().cpu(), labels.long().cpu()
+    return sum(int(torch.bincount(lab[a == c]).max())
+               for c in range(k) if bool((a == c).any())) / len(lab)
+
+
+def paper_apps_path(ops) -> dict:
+    """The paper-apps path at full width (module docstring, step 9):
+    mnist_dimred pretraining -> encode -> k-means++ -> kmeans_fit on the
+    kernel, then kdd_anomaly scoring.  Draws come from a CPU generator
+    (``SEED``), the same on every device.  Returns the launch count, the
+    stage times and the path's numbers."""
+    from repro_torch.configs.paper_apps import NETWORKS, PAPER_SPEC
+    from repro_torch.core import anomaly, autoencoder as ae, kmeans
+    from repro_torch.data import synthetic as syn
+
+    g = torch.Generator().manual_seed(SEED)
+    x, labels = syn.mnist_like(g, 2048, device="cuda")
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ops.kmeans_assign.launches = 0
+    marks[0].record()
+    enc_layers, curves = ae.pretrain_stack(
+        g, x, NETWORKS["mnist_dimred"], PAPER_SPEC, lr=0.05,
+        epochs=APPS_PRETRAIN_EPOCHS, batch=16)
+    marks[1].record()
+    feats = ae.encode(enc_layers, x, PAPER_SPEC)
+    marks[2].record()
+    init = kmeans.init_plusplus(g, feats, 10)
+    centers, assign, inertia = kmeans.kmeans_fit(feats, init, epochs=15,
+                                                 use_kernel=True)
+    marks[3].record()
+    fit_launches = ops.kmeans_assign.launches
+    again = kmeans.assign(feats, centers, use_kernel=True)
+    normal, attack = syn.kdd_like(g, 4096, 1024, device="cuda")
+    enc, dec, ae_losses = ae.pretrain_layer(
+        g, normal, *NETWORKS["kdd_anomaly"][:2], PAPER_SPEC, lr=0.03,
+        epochs=APPS_ANOMALY_EPOCHS, batch=16)
+    s_n = anomaly.reconstruction_error([enc, dec], normal, PAPER_SPEC)
+    s_a = anomaly.reconstruction_error([enc, dec], attack, PAPER_SPEC)
+    marks[4].record()
+    torch.cuda.synchronize()
+    launches = ops.kmeans_assign.launches
+    if (fit_launches, launches) != (1, 2):
+        raise AssertionError(f"kmeans_assign launches: {fit_launches} in "
+                             f"kmeans_fit, {launches} in all; expected one "
+                             f"per kernel-routed call (1, 2)")
+    if feats.shape != (2048, 20) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"features {tuple(feats.shape)} not finite")
+    if not torch.equal(again, assign):
+        raise AssertionError("two launches on the same inputs differ")
+    flips = near_tie_flips(feats, centers, assign,
+                           kmeans.assign(feats, centers), "kmeans_fit")
+    rises = torch.diff(inertia)
+    if bool((rises > 1e-3).any()):
+        raise AssertionError(f"inertia rose by {float(rises.max())}")
+    for what, t in (("pretraining losses", torch.cat(curves)),
+                    ("anomaly losses", ae_losses), ("normal scores", s_n),
+                    ("attack scores", s_a), ("centers", centers)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"paper-apps path: {what} not finite")
+    det = anomaly.detection_at_fpr(s_n, s_a, max_fpr=0.04)
+    auc = anomaly.auc(s_n, s_a)
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+    out = {
+        "kmeans_assign launches": launches, "near_tie_flips": flips,
+        "purity": purity(assign, labels, 10),
+        "inertia first, last": [float(inertia[0]), float(inertia[-1])],
+        "pretrain loss per layer, first -> last epoch": [
+            [float(c[0]), float(c[-1])] for c in curves],
+        "anomaly detection at 4% FPR": det, "anomaly AUC": auc,
+        "ms": {"pretrain_stack 784-300-200-100-20": ms[0],
+               "encode": ms[1], "init_plusplus + kmeans_fit": ms[2],
+               "assign + kdd_anomaly draw, pretrain, scoring": ms[3]}}
+    print(f"paper-apps path: kmeans_assign launches {launches} (1 in "
+          f"kmeans_fit(use_kernel=True), 1 in assign(use_kernel=True)); "
+          f"kernel vs plain assign on the fitted centers: {flips} near-tie "
+          f"flips; inertia non-increasing; purity {out['purity']:.4f}; "
+          f"detection at 4% FPR {det * 100:.2f}% (paper: 96.6%), AUC "
+          f"{auc:.4f}")
+    print("paper-apps path: " + json.dumps(out))
+    return out
+
+
 def profile_device(fn, reps: int = 3) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
     (``torch.profiler``), and the device's busy share of their span (CUDA
@@ -1292,7 +1490,8 @@ def main() -> int:
     from repro_torch.configs.paper_apps import PAPER_SPEC
     from repro_torch.core import hw_model as hw
     from repro_torch.core.crossbar import mlp_forward, paper_backprop_step
-    from repro_torch.kernels import _build, crossbar as xbk, ops
+    from repro_torch.kernels import _build, crossbar as xbk, kmeans as kmk
+    from repro_torch.kernels import ops
     from repro_torch.launch.chipsim import build_chip
     from repro_torch.sim import chip as chip_mod, compiled as csim
 
@@ -1321,6 +1520,9 @@ def main() -> int:
     train_err, train_rows = train_kernel_phase(xbk, ops, gen)
     fused_err, fused_rows = fused_kernel_phase(xbk, ops, gen)
     phase_s["kernel phases"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    km_flips, km_rows = kmeans_kernel_phase(kmk, gen)
+    phase_s["kmeans kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     # -- eager recognition path: the counts start at 0 and are read after
@@ -1384,6 +1586,9 @@ def main() -> int:
                                            gen)
     phase_s["crossbar_apply path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    apps = paper_apps_path(ops)
+    phase_s["paper-apps path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # -- wave and step times (device events, after warm-up), compiled
     # beside eager in this one run
@@ -1431,6 +1636,7 @@ def main() -> int:
           f"{4096 / times['compiled step mnist_class x4096 ms'] * 1e3:.0f}")
     print("kernel shapes (M=4096): "
           + json.dumps(rows + train_rows + fused_rows))
+    print(f"kmeans_assign shapes [{card}]: " + json.dumps(km_rows))
     cstep = steppers["compiled"]["mnist_class"]
     kernels = replay_kernels(
         lambda: cstep.train_step(x4096, t4096, lr=LR))
@@ -1491,8 +1697,7 @@ def main() -> int:
     replaces = {"crossbar_fwd": 84, "crossbar_bwd": 145, "crossbar_dw": 207,
                 "pulse_update": 403, "crossbar_train": 308}
     entries = []
-    for name in KERNELS:
-        timed, what = by_kernel[name]
+    for name, (timed, what) in by_kernel.items():
         flop_ms = sum(bound(r["T"], r["M"], r["K"], r["N"], name,
                             1 if r.get("codes") else 4)[0] for r in timed)
         byte_ms = sum(bound(r["T"], r["M"], r["K"], r["N"], name,
@@ -1511,6 +1716,19 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in timed),
             "timed": what,
         })
+    km = km_rows[0]     # the clustering path's own shape
+    entries.append({
+        "name": "kmeans_assign", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans.py:26",
+        "launches": apps["kmeans_assign launches"],
+        "max_abs_err": km_flips + apps["near_tie_flips"],
+        "ms": km["ms"], "plain_ms": km["plain_ms"],
+        "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
+        "library_ms": km["library_ms"],
+        "timed": "one launch at the clustering path's shape (n=2048, "
+                 "d=20, k=10); max_abs_err counts assignments that "
+                 "differ from plain (near-ties only)"})
     phase_s["timing and profiles"] = time.perf_counter() - t0
     print("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))

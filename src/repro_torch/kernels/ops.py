@@ -20,9 +20,12 @@ backward runs the bwd and dw kernels, on 8-bit error codes when
 dw + pulse update, optionally the forward) on one launch: the compiled
 step's per-stage body (``repro_torch.sim.compiled``).
 
+``kmeans_assign`` is the clustering core's assignment step (the k-means
+kernel, ``kernels/kmeans.py``).
+
 Not ported yet (ROADMAP): the TPU block autotuner, the tuned-block table
 and the conductance pad cache (reference ``ops.py:60-255``), which tile for
-the TPU's VMEM; the k-means and attention wrappers.
+the TPU's VMEM; the attention wrapper.
 """
 from __future__ import annotations
 
@@ -30,16 +33,18 @@ import torch
 
 from repro_torch.core import quantization as q
 from repro_torch.kernels import crossbar as xbk
+from repro_torch.kernels import kmeans as kmk
 
 
-def _dispatch(wrapper, name: str, *tensors, **kwargs):
-    """Run ``name`` on core stacks: its plain version when every tensor
-    (``dy_scale`` and a tensor ``lr`` included) lies on the CPU, else its
-    CUDA kernel on contiguous operands, counted on ``wrapper.launches``."""
+def _dispatch(wrapper, name: str, *tensors, module=xbk, **kwargs):
+    """Run ``name`` of ``module`` (the crossbar kernels unless named): its
+    plain version when every tensor (``dy_scale`` and a tensor ``lr``
+    included) lies on the CPU, else its CUDA kernel on contiguous operands,
+    counted on ``wrapper.launches``."""
     extra = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
     if all(t.device.type == "cpu" for t in list(tensors) + extra):
-        return getattr(xbk, f"{name}_plain")(*tensors, **kwargs)
-    out = getattr(xbk, f"{name}_kernel")(
+        return getattr(module, f"{name}_plain")(*tensors, **kwargs)
+    out = getattr(module, f"{name}_kernel")(
         *(t.contiguous() for t in tensors), **kwargs)
     wrapper.launches += 1
     return out
@@ -305,3 +310,20 @@ def crossbar_train_stacked(g_plus: torch.Tensor, g_minus: torch.Tensor,
 
 
 crossbar_train_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The digital clustering core (k-means assignment)
+# ---------------------------------------------------------------------------
+
+def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Manhattan assignment.  x (n, d); centers (k, d) -> (n,) int32, ties
+    to the lowest index.  Both are taken as fp32; k and d are at most 128
+    (raises otherwise).  Any n: the kernel masks the ragged tail, nothing
+    is padded."""
+    kmk.check_limits(x, centers)
+    return _dispatch(kmeans_assign, "kmeans_assign", x.to(torch.float32),
+                     centers.to(torch.float32), module=kmk)
+
+
+kmeans_assign.launches = 0

@@ -1,5 +1,5 @@
 """Plain torch oracles for the ported kernels (mirrors ``repro.kernels.ref``;
-the k-means and attention oracles arrive with their kernels)."""
+the attention oracle arrives with its kernel)."""
 from __future__ import annotations
 
 import torch
@@ -39,3 +39,10 @@ def pulse_update_ref(g_plus: torch.Tensor, g_minus: torch.Tensor,
     gp = torch.clamp(g_plus + 0.5 * dw, 0.0, w_max)
     gm = torch.clamp(g_minus - 0.5 * dw, 0.0, w_max)
     return gp, gm
+
+
+def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Manhattan-distance argmin assignment (paper Fig. 13)."""
+    d = torch.sum(torch.abs(x[:, None, :].to(torch.float32)
+                            - centers[None, :, :].to(torch.float32)), dim=-1)
+    return torch.argmin(d, dim=-1).to(torch.int32)

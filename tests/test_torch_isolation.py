@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``, and its entry points refuse to
-run on a CUDA device that is not there instead of falling back to the CPU.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither JAX nor the JAX
+package ``repro``, and its entry points refuse to run on a CUDA device that
+is not there instead of falling back to the CPU.
 """
 import os
 import pathlib
@@ -51,8 +52,9 @@ def test_every_port_module_imports_without_jax_or_repro():
 
 
 def test_sources_have_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 16
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+    assert len(files) >= 16 and len(examples) >= 3
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
