@@ -9,9 +9,9 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and turns TF32
    off for every fp32 matmul and convolution;
-2. builds the six kernels from ``src/repro_torch/kernels/csrc`` (five
-   crossbar kernels and the k-means assignment; one nvcc per source, all
-   started together) and prints the build time and ptxas' register/spill
+2. builds the seven kernels from ``src/repro_torch/kernels/csrc`` (five
+   crossbar kernels, the k-means assignment and flash attention; one nvcc
+   per source, all started together) and prints the build time and ptxas' register/spill
    report;
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
@@ -31,7 +31,15 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    2048, d = 20, k = 10), n = 60000, k = 26, the hardware core's 32 x 32,
    the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
    duplicated centers (exact ties go to the lowest index), timed beside its
-   plain version, ``torch.cdist(p=1).argmin`` and the bound;
+   plain version, ``torch.cdist(p=1).argmin`` and the bound; and the flash
+   attention kernel at qwen2-0.5b's prefill shape (B=4, S=2048, 14 heads
+   on 2, hd 64) in bf16 and fp32, the yi-6b head shape (1, 4096, 32 on 4,
+   hd 128), a ragged S = 1000, non-causal 384, MHA, the reference test's
+   four shapes and strided views (through ``ops.flash_attention``, the
+   model's wrapper), timed beside its plain version,
+   ``scaled_dot_product_attention`` (never called by the port) and the
+   bound (q.k at the bf16 tensor-core rate where its operands are bf16,
+   p.v at the fp32 rate);
 4. eager recognition path (``compiled=False``): ``build_chip`` for
    mnist_class at full width (784-300-200-100-10, 13 cores) runs
    ``infer_stream`` on 16 samples and on a 4096-sample wave, isolet_class
@@ -79,11 +87,26 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    kdd_anomaly (41-15-41, 3 epochs) and ``reconstruction_error`` on normal
    and attack traffic, printing detection at 4 % FPR and AUC beside the
    paper's 96.6 %, and each stage's time (CUDA events);
-10. prints the wave and training-step times (CUDA events), compiled beside
+10. LM prefill path, the flash count set to 0 before and read after:
+    ``build_model`` for the full qwen2-0.5b config on ``cuda``, parameters
+    from ``init`` with seed 0, ``prefill_fn`` on 4 x 2048 tokens drawn from
+    seed 0: exactly 24 flash launches (one per layer), logits (4, 2048,
+    152064) finite with the 128 pad columns at -1e30; its time (CUDA
+    events), tokens/s and a profile;
+11. LM decode against prefill at full width: ``BatchedServer(batch=4,
+    max_len=256)`` serves ``launch/serve.py``'s 8-token prompts with
+    ``max_new=32`` (39 steps, 128 tokens), its decode logits recorded and
+    its flash launches counted (0: the server only decodes, and decode
+    attention is plain); ``prefill_fn`` on each slot's prompt + generated
+    tokens (a check: its 24 launches are not the path's) must give the same logits at every step within 0.125 in bf16
+    and 1e-3 in float32 compute with a float32 cache, and every generated
+    token must be the prefill argmax except where its top-2 gap lies within
+    that bar (counted); decode ms per step, tokens/s and a profiled step;
+12. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
-    kernels and only those), one ``{"kernels": [...]}`` line, and last
-    ``{"ok": true, "device": {...}}``.
+    kernels and only those), one ``{"kernels": [...]}`` line with seven
+    entries, and last ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -95,11 +118,16 @@ counts may differ by one only where the plain unrounded count lies within
 (u/2 = 1.95e-4), everywhere else by at most 1e-6.  The fused kernel and
 the four-call sequence must agree exactly.  k-means assignments are
 equal, except where the two smallest distances of a sample (recomputed in
-float64) lie within 1e-5 relative of each other.  Any failure raises.
+float64) lie within 1e-5 relative of each other.  Flash attention in
+fp32 within 2e-5 absolute plus relative (the reference's kernel bar); in
+bf16 within one bf16 step of the plain result (the spacing of bf16 at the
+larger magnitude, plus 1e-6: both sides round an fp32 value once).  Any
+failure raises.
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -118,6 +146,7 @@ ADC_BITS, ADC_RANGE = 3, 0.5
 MAX_DW, LEVELS, W_MAX = 0.05, 128, 1.0   # PAPER_SPEC's pulse rule
 LR = 0.1                 # the CLI's default learning rate
 FP32_FLOPS = 67e12       # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOPS = 989e12      # H100 SXM bf16 tensor-core peak (dense)
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3 bandwidth
 SEED = 0
 
@@ -141,7 +170,7 @@ TRAIN_SHAPES = {
 # (K, N) of mnist's four layers: crossbar_apply(use_kernel=True) shapes
 MNIST_LAYERS = [(784, 300), (300, 200), (200, 100), (100, 10)]
 KERNELS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
-           "crossbar_train", "kmeans_assign")
+           "crossbar_train", "kmeans_assign", "flash_attention")
 # (chip, batch, lr) of the training main path, in order
 STEPS = ([("mnist_class", 1, LR)] * 2 + [("mnist_class", 1, LR / 2)]
          + [("mnist_class", 4096, LR)] * 2 + [("isolet_class", 256, LR)])
@@ -1432,6 +1461,301 @@ def paper_apps_path(ops) -> dict:
     return out
 
 
+# -- the LM serving path (qwen2-0.5b at full width) and the flash kernel ----
+
+FA_TOL = 2e-5            # fp32 kernel vs plain: the reference's kernel bar
+# (B, S, H, K, hd, causal, dtype, what) of the flash kernel phase
+FLASH_CASES = [
+    (4, 2048, 14, 2, 64, True, "bfloat16", "qwen2-0.5b prefill"),
+    (4, 2048, 14, 2, 64, True, "float32", "qwen2-0.5b prefill, fp32"),
+    (1, 4096, 32, 4, 128, True, "bfloat16", "yi-6b heads"),
+    (2, 1000, 14, 2, 64, True, "bfloat16", "ragged S = 1000"),
+    (2, 384, 8, 2, 64, False, "float32", "non-causal"),
+    (2, 512, 8, 8, 64, True, "float32", "MHA (G = 1)"),
+    (2, 64, 4, 2, 16, True, "float32", "test_kernels shape 1"),
+    (1, 128, 2, 1, 32, True, "float32", "test_kernels shape 2"),
+    (2, 64, 4, 4, 16, False, "float32", "test_kernels shape 3"),
+    (1, 256, 2, 2, 64, True, "float32", "test_kernels shape 4"),
+]
+LM_ARCH = "qwen2-0.5b"
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_NEW = 4, 256, 32
+# decode logits against prefill logits at full width: bf16 compute and
+# cache, every product's output rounded to bf16 (a step of 2^-6 at
+# |logit| in [2, 4)) and summed in other orders through 24 layers: 8 such
+# steps.  float32 compute and cache, TF32 off: summation order only.
+LOGIT_BAR = {"bfloat16": 0.125, "float32": 1e-3}
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def check_flash(got, want, dtype, what) -> float:
+    """fp32: |Δ| <= FA_TOL (1 + |want|); bf16: one bf16 step at the larger
+    of the two.  Raises otherwise; returns the largest |Δ|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if dtype == "float32":
+        bar = FA_TOL + FA_TOL * want.abs()
+    else:
+        bar = bf16_step(torch.maximum(got.abs(), want.abs())) + 1e-6
+    if not bool(torch.isfinite(got).all()) or not bool((err <= bar).all()):
+        raise AssertionError(f"flash_attention {what}: max |err| "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def flash_bound(B, Sq, Skv, H, K, hd, causal, dtype,
+                scale) -> tuple[float, float]:
+    """(ms at the operations' peaks, ms at the HBM rate) of one call.  Per
+    (query, visible key) pair: 2 B H hd FLOPs of scaled q . k and 2 B H hd
+    of p . v.  q . k runs at the bf16 tensor-core rate where its operands
+    are bf16 (bf16 inputs and a power-of-two scale, so the scaled q is
+    exact in bf16), else at the fp32 rate; p . v at the fp32 rate (p is
+    fp32).  q, k, v read once and the output written once."""
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
+    half = 2.0 * B * H * hd * pairs
+    bf16_qk = dtype == torch.bfloat16 and math.frexp(scale)[0] == 0.5
+    op_s = half / (BF16_FLOPS if bf16_qk else FP32_FLOPS) + half / FP32_FLOPS
+    moved = (torch.finfo(dtype).bits // 8) * (2 * B * Sq * H * hd
+                                              + 2 * B * Skv * K * hd)
+    return op_s * 1e3, moved / HBM_BYTES_S * 1e3
+
+
+def flash_kernel_phase(fak, ops, gen) -> tuple[float, list[dict]]:
+    """The flash kernel against its plain version at FLASH_CASES (and, on
+    strided views, through the model's wrapper ``ops.flash_attention``),
+    timed (CUDA events, and its device time under the
+    profiler) beside the plain version, ``scaled_dot_product_attention``
+    on (B, H, S, hd) transposes made outside the timed region, and the
+    bound; returns (max |err|, rows).  Launches here are not counted."""
+    import torch.nn.functional as F
+    worst, rows = 0.0, []
+    for B, S, H, K, hd, causal, dt, what in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda"
+                        ).to(dtype)
+        k = torch.randn((B, S, K, hd), generator=gen, device="cuda"
+                        ).to(dtype)
+        v = torch.randn((B, S, K, hd), generator=gen, device="cuda"
+                        ).to(dtype)
+        scale = hd ** -0.5
+        got = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal)
+        want = fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != (B, S, H, hd):
+            raise AssertionError(f"flash_attention {what}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        err = check_flash(got, want, dt, what)
+        worst = max(worst, err)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        op_ms, byte_ms = flash_bound(B, S, S, H, K, hd, causal, dtype,
+                                     scale)
+        rows.append({
+            "kernel": "flash_attention", "B": B, "S": S, "H": H, "K": K,
+            "hd": hd, "causal": causal, "dtype": dt, "case": what,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fak.flash_attention_kernel(
+                q, k, v, scale=scale, causal=causal), iters=10),
+            "device_ms": next(
+                t["ms"] for t in profile_device(
+                    lambda: fak.flash_attention_kernel(
+                        q, k, v, scale=scale, causal=causal),
+                    reps=5)["top"] if "flash_fwd" in t["kernel"]),
+            "plain_ms": cuda_ms(lambda: fak.flash_attention_plain(
+                q, k, v, scale=scale, causal=causal), iters=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale,
+                enable_gqa=True), iters=10),
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes"})
+        del q, k, v, qt, kt, vt, got, want
+    # strided operands through the model's wrapper: q, k, v as (B, S,
+    # heads, hd) views of (B, heads, S, hd) buffers go to the kernel as
+    # they are and are read through their strides, nothing is copied
+    qb = torch.randn((2, 14, 300, 64), generator=gen, device="cuda")
+    kb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
+    vb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
+    q, k, v = (t.transpose(1, 2) for t in (qb, kb, vb))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, scale=0.125)
+    if ops.flash_attention.launches != before + 1:
+        raise AssertionError("ops.flash_attention did not launch the kernel "
+                             "on strided CUDA views")
+    want = fak.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), scale=0.125)
+    worst = max(worst, check_flash(got, want, "float32", "strided views"))
+    print(f"flash kernel phase: {len(FLASH_CASES)} shapes + strided views "
+          f"within their bars (fp32 {FA_TOL} abs + rel; bf16 one bf16 "
+          f"step at the larger |value| + 1e-6); max |err| {worst:.3e}")
+    return worst, rows
+
+
+def lm_prefill_path(ops, model, params) -> dict:
+    """qwen2-0.5b ``prefill_fn`` at full width on 4 x 2048 tokens drawn
+    from SEED, the flash count set to 0 before and read after: 24 launches
+    (one per layer); logits (4, 2048, 152064) finite, pad columns -1e30.
+    Times the call (CUDA events) and profiles one."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens}
+    ops.flash_attention.launches = 0
+    logits = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    launches = ops.flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill ran flash_attention {launches} "
+                             f"times, expected {cfg.n_layers}")
+    want_shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
+    if logits.shape != want_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, expected {want_shape}")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError("prefill logits not finite")
+    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
+        raise AssertionError("prefill pad columns are not -1e30")
+    del logits
+    ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=3,
+                 warmup=1)
+    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1)
+    out = {"flash_attention launches": launches, "prefill ms": ms,
+           "prefill tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
+           "profile": prof}
+    pad = cfg.padded_vocab - cfg.vocab_size
+    print(f"prefill path: {LM_ARCH} at full width, {PREFILL_BATCH} x "
+          f"{PREFILL_LEN} tokens: {launches} flash_attention launches (one "
+          f"per layer), logits {want_shape} finite, {pad} pad columns "
+          f"-1e30; {ms:.3f} ms per call, "
+          f"{out['prefill tokens/s']:.0f} tokens/s")
+    print("prefill profile (profiler on): " + json.dumps(prof))
+    return out
+
+
+def decode_against_prefill(ops, model, params, BatchedServer,
+                           compute: str) -> dict:
+    """``BatchedServer`` serves the CLI's prompts (39 steps, 128 tokens),
+    recording each step's logits; then ``prefill_fn`` on every slot's
+    prompt + generated tokens.  The decode logits at each of the 39
+    positions must equal the prefill logits within LOGIT_BAR[compute], and
+    each generated token the prefill argmax, except where the prefill's
+    top-2 gap lies within the bar (counted).  ``compute`` float32 runs a
+    float32 cache.  Returns the numbers, with decode times."""
+    cfg = model.cfg
+    dtype = getattr(torch, compute)
+    prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
+               for i in range(SERVE_BATCH)]      # launch/serve.py's prompts
+
+    def serve():
+        server = BatchedServer(model, params, batch=SERVE_BATCH,
+                               max_len=SERVE_MAX_LEN, cache_dtype=dtype)
+        rec = []
+
+        def recording(p, cache, batch):
+            logits, cache = model.decode_fn(p, cache, batch)
+            rec.append(logits[:, -1].clone())
+            return logits, cache
+
+        server.decode = recording
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = server.generate(prompts, SERVE_NEW)
+        end.record()
+        end.synchronize()
+        return server, outs, rec, start.elapsed_time(end)
+
+    serve()                                   # warm-up
+    ops.flash_attention.launches = 0
+    server, outs, rec, total_ms = serve()
+    serve_launches = ops.flash_attention.launches   # decode only: 0
+    steps, toks = server.stats.steps, server.stats.tokens_out
+    if (steps, toks) != (8 + SERVE_NEW - 1, SERVE_BATCH * SERVE_NEW):
+        raise AssertionError(f"server: {steps} steps, {toks} tokens; "
+                             f"expected 39 and 128")
+    seqs = torch.tensor([p + o for p, o in zip(prompts, outs)],
+                        dtype=torch.int32, device="cuda")
+    ops.flash_attention.launches = 0
+    full = model.prefill_fn(params, {"tokens": seqs})
+    torch.cuda.synchronize()
+    launches = ops.flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the check's prefill ran flash_attention "
+                             f"{launches} times, expected {cfg.n_layers}")
+    dec = torch.stack(rec, dim=1)                        # (B, 39, V)
+    pre = full[:, :steps]
+    err = (dec - pre).abs()[..., :cfg.vocab_size]
+    bar = LOGIT_BAR[compute]
+    if not bool(torch.isfinite(dec[..., :cfg.vocab_size]).all()) or \
+            float(err.max()) > bar:
+        raise AssertionError(f"decode vs prefill ({compute}): max |Δ| "
+                             f"{float(err.max())} > {bar}")
+    top2 = torch.topk(pre[:, 7:], 2, dim=-1).values      # generating steps
+    gap = top2[..., 0] - top2[..., 1]
+    got = torch.tensor(outs, device="cuda")
+    off = got != pre[:, 7:].argmax(-1)
+    if bool((off & (gap > bar)).any()):
+        raise AssertionError(f"decode ({compute}): a generated token is "
+                             f"not the prefill argmax away from a near-tie")
+    # one more decode step of the served batch under the profiler: where a
+    # step's time goes (it appends to the served cache, which has room)
+    step_batch = {"tokens": seqs[:, -1:], "length": steps}
+    prof = profile_device(lambda: model.decode_fn(params, server.cache,
+                                                  step_batch))
+    out = {"compute": compute, "max |decode - prefill| logit":
+           float(err.max()), "bar": bar,
+           "tokens excused as near-ties": int(off.sum()),
+           "positions with a top-2 gap within the bar": int(
+               (gap <= bar).sum()),
+           "flash_attention launches in the check's prefill": launches,
+           "flash_attention launches in BatchedServer.generate":
+               serve_launches,
+           "steps": steps, "tokens_out": toks,
+           "decode ms per step": total_ms / steps,
+           "decode tokens/s": toks / total_ms * 1e3,
+           "decode step profile": prof}
+    print(f"decode vs prefill ({compute} compute and cache): {steps} "
+          f"steps, {toks} tokens; max |decode - prefill| logit "
+          f"{out['max |decode - prefill| logit']:.3e} (bar {bar}); "
+          f"{out['tokens excused as near-ties']} generated tokens differ "
+          f"from the prefill argmax, all at near-ties; "
+          f"{out['decode ms per step']:.3f} ms per step, "
+          f"{out['decode tokens/s']:.1f} tokens/s; {serve_launches} "
+          f"flash_attention launches while serving (decode attention is "
+          f"plain); one step under the "
+          f"profiler: {prof['span_ms']:.3f} ms span, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['device_idle_share']:.3f}")
+    return out
+
+
+def lm_path(ops) -> dict:
+    """The LM serving path (module docstring, steps 11-12)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import BatchedServer
+    model = build_model(get_config(LM_ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    out = {"prefill": lm_prefill_path(ops, model, params)}
+    out["decode bf16"] = decode_against_prefill(ops, model, params,
+                                                BatchedServer, "bfloat16")
+    model32 = build_model(get_config(LM_ARCH, compute_dtype="float32"),
+                          "cuda")
+    out["decode fp32"] = decode_against_prefill(ops, model32, params,
+                                                BatchedServer, "float32")
+    out["flash_attention launches"] = \
+        out["prefill"]["flash_attention launches"]
+    out["flash_attention launches serving"] = sum(
+        out[d]["flash_attention launches in BatchedServer.generate"]
+        for d in ("decode bf16", "decode fp32"))
+    return out
+
+
 def profile_device(fn, reps: int = 3) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
     (``torch.profiler``), and the device's busy share of their span (CUDA
@@ -1491,6 +1815,7 @@ def main() -> int:
     from repro_torch.core import hw_model as hw
     from repro_torch.core.crossbar import mlp_forward, paper_backprop_step
     from repro_torch.kernels import _build, crossbar as xbk, kmeans as kmk
+    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     from repro_torch.launch.chipsim import build_chip
     from repro_torch.sim import chip as chip_mod, compiled as csim
@@ -1523,6 +1848,9 @@ def main() -> int:
     t0 = time.perf_counter()
     km_flips, km_rows = kmeans_kernel_phase(kmk, gen)
     phase_s["kmeans kernel phase"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fa_err, fa_rows = flash_kernel_phase(fak, ops, gen)
+    phase_s["flash kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     # -- eager recognition path: the counts start at 0 and are read after
@@ -1589,6 +1917,9 @@ def main() -> int:
     apps = paper_apps_path(ops)
     phase_s["paper-apps path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    lm = lm_path(ops)
+    phase_s["LM serving path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # -- wave and step times (device events, after warm-up), compiled
     # beside eager in this one run
@@ -1637,6 +1968,9 @@ def main() -> int:
     print("kernel shapes (M=4096): "
           + json.dumps(rows + train_rows + fused_rows))
     print(f"kmeans_assign shapes [{card}]: " + json.dumps(km_rows))
+    print(f"flash_attention shapes [{card}]: " + json.dumps(fa_rows))
+    print(f"LM serving path [{card}]: " + json.dumps(
+        {k: v for k, v in lm.items() if k != "prefill"}))
     cstep = steppers["compiled"]["mnist_class"]
     kernels = replay_kernels(
         lambda: cstep.train_step(x4096, t4096, lr=LR))
@@ -1729,6 +2063,25 @@ def main() -> int:
         "timed": "one launch at the clustering path's shape (n=2048, "
                  "d=20, k=10); max_abs_err counts assignments that "
                  "differ from plain (near-ties only)"})
+    fa = fa_rows[0]     # the prefill path's own shape
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:70",
+        "launches": lm["flash_attention launches"],
+        "launches_serving_path": lm["flash_attention launches serving"],
+        "max_abs_err": fa_err,
+        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "timed": "one launch at qwen2-0.5b's prefill shape (B=4, S=2048, "
+                 "H=14, K=2, hd=64, causal, bf16); launches: one prefill_fn "
+                 "call (24, one per layer); launches_serving_path: "
+                 "BatchedServer.generate, bf16 and fp32 (decode only, "
+                 "plain attention); bound: q.k at the bf16 tensor-core "
+                 "rate (scale 1/8 keeps the scaled q exact in bf16), p.v "
+                 "at the fp32 rate; library: scaled_dot_product_attention "
+                 "in bf16"})
     phase_s["timing and profiles"] = time.perf_counter() - t0
     print("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))

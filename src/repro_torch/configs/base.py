@@ -1,0 +1,179 @@
+"""Model configuration and architecture registry (port of
+``repro/configs/base.py``).
+
+``ModelConfig`` keeps every field of the reference's, so a config module
+copies over unchanged and compares field for field.  The registry lists
+only the architectures the port can build: the four dense (``attn``-only)
+configs.  The MoE, SSM, hybrid, encoder-decoder and VLM configs wait for
+their layers (ROADMAP Queue 1 item 10), and so do ``moe()``, ``ssd()`` and
+``rglru()``.  ``reduced()`` of each config module yields the CPU test
+variant (same topology, tiny widths).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+from repro_torch.layers.attention import AttnConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    vocab_size: int
+    d_model: int
+    n_layers: int
+
+    # --- attention ---
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    window: int | None = None        # sliding window for "local" blocks
+    mrope_sections: tuple[int, int, int] | None = None
+
+    # --- mlp ---
+    d_ff: int = 0
+    mlp_act: str = "silu"
+    gated_mlp: bool = True
+    norm: str = "rmsnorm"
+
+    # --- moe ---
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    first_dense_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 1024
+
+    # --- ssm (mamba2) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+
+    # --- rglru (griffin) ---
+    d_rnn: int = 0
+
+    # --- topology ---
+    block_pattern: tuple[str, ...] = ("attn",)   # cycled over n_layers
+    encoder_layers: int = 0                      # > 0 => encoder-decoder
+    tie_embeddings: bool = False
+    vlm_patches: int = 0                         # > 0 => patch-embedding stub
+
+    # --- execution ---
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    crossbar: bool = False                       # paper technique on/off
+    xbar_act_bits: int = 8
+    xbar_err_bits: int = 8
+    xbar_w_max: float = 4.0
+    xbar_paired: bool = True                     # literal (G+,G-) vs (w,c)
+    xbar_use_kernel: bool = False                # crossbar kernels' path
+    remat: str = "full"                          # none | full | dots
+    # chunked_attention's tiling (not ported): kept so that a config equals
+    # the reference's field for field; nothing in the port reads them
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    skip_masked_blocks: bool = False
+    logits_softcap: float = 0.0
+    unroll_layers: bool = False
+    grad_accum: int = 1
+    # KV-cache storage: "bfloat16" or "int8" (quantized-transport cache,
+    # see layers/attention.py).
+    kv_cache_dtype: str = "bfloat16"
+
+    # --- capability flags ---
+    sub_quadratic: bool = False                  # supports long_500k decode
+
+    sharding_overrides: tuple[tuple[str, Any], ...] | None = None
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256 (the reference's layout:
+        the pad columns of the head are masked to -1e30)."""
+        return -(-self.vocab_size // 256) * 256
+
+    def attn(self, window: int | None = None) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim or self.d_model // max(self.n_heads, 1),
+            qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+            window=window, mrope_sections=self.mrope_sections)
+
+    def layer_kinds(self) -> list[str]:
+        """Per-layer block kinds: optional dense prefix, then the pattern
+        cycled."""
+        kinds: list[str] = []
+        for i in range(self.n_layers):
+            if i < self.first_dense_layers:
+                kinds.append("attn")
+                continue
+            kinds.append(self.block_pattern[
+                (i - self.first_dense_layers) % len(self.block_pattern)])
+        return kinds
+
+    def param_count(self) -> int:
+        """Parameters of the port's spec (shapes only, nothing allocated)."""
+        from repro_torch.dist.sharding import param_count
+        from repro_torch.models.lm import lm_spec
+        return param_count(lm_spec(self))
+
+
+# ---------------------------------------------------------------------------
+# Registry: the architectures the port builds
+# ---------------------------------------------------------------------------
+
+ARCH_MODULES = {
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
+    "qwen2-0.5b": "repro_torch.configs.qwen2_05b",
+}
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    cfg: ModelConfig = mod.CONFIG
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def get_reduced_config(arch: str, **overrides) -> ModelConfig:
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    cfg: ModelConfig = mod.reduced()
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def list_archs() -> list[str]:
+    return list(ARCH_MODULES)
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (seq_len, global_batch)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped): long_500k needs a sub-quadratic arch."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 500k dense-attention decode is "
+                       "the quadratic regime long_500k excludes")
+    return True, ""

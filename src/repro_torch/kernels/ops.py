@@ -23,9 +23,12 @@ step's per-stage body (``repro_torch.sim.compiled``).
 ``kmeans_assign`` is the clustering core's assignment step (the k-means
 kernel, ``kernels/kmeans.py``).
 
+``flash_attention`` is the fused attention of the LM's prefill (the flash
+kernel, ``kernels/flash_attention.py``).
+
 Not ported yet (ROADMAP): the TPU block autotuner, the tuned-block table
 and the conductance pad cache (reference ``ops.py:60-255``), which tile for
-the TPU's VMEM; the attention wrapper.
+the TPU's VMEM.
 """
 from __future__ import annotations
 
@@ -33,19 +36,23 @@ import torch
 
 from repro_torch.core import quantization as q
 from repro_torch.kernels import crossbar as xbk
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import kmeans as kmk
 
 
-def _dispatch(wrapper, name: str, *tensors, module=xbk, **kwargs):
+def _dispatch(wrapper, name: str, *tensors, module=xbk, strided=False,
+              **kwargs):
     """Run ``name`` of ``module`` (the crossbar kernels unless named): its
     plain version when every tensor (``dy_scale`` and a tensor ``lr``
-    included) lies on the CPU, else its CUDA kernel on contiguous operands,
-    counted on ``wrapper.launches``."""
+    included) lies on the CPU, else its CUDA kernel, counted on
+    ``wrapper.launches``.  The kernel gets contiguous operands unless it
+    reads them through their strides (``strided``)."""
     extra = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
     if all(t.device.type == "cpu" for t in list(tensors) + extra):
         return getattr(module, f"{name}_plain")(*tensors, **kwargs)
-    out = getattr(module, f"{name}_kernel")(
-        *(t.contiguous() for t in tensors), **kwargs)
+    if not strided:
+        tensors = tuple(t.contiguous() for t in tensors)
+    out = getattr(module, f"{name}_kernel")(*tensors, **kwargs)
     wrapper.launches += 1
     return out
 
@@ -327,3 +334,22 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 
 
 kmeans_assign.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Attention (the LM's prefill)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True) -> torch.Tensor:
+    """Fused attention.  q (B, Sq, H, hd); k, v (B, Skv, K, hd), H % K == 0
+    -> (B, Sq, H, hd) in q's dtype.  GQA reads kv head h // (H // K) in the
+    kernel (nothing is broadcast), and the kernel reads q, k and v through
+    their strides (nothing is copied).  Any Sq and Skv: the kernel masks
+    the ragged edge, nothing is padded."""
+    fak.check_shapes(q, k, v)
+    return _dispatch(flash_attention, "flash_attention", q, k, v,
+                     module=fak, strided=True, scale=scale, causal=causal)
+
+
+flash_attention.launches = 0

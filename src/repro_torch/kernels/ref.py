@@ -1,8 +1,10 @@
-"""Plain torch oracles for the ported kernels (mirrors ``repro.kernels.ref``;
-the attention oracle arrives with its kernel)."""
+"""Plain torch oracles for the ported kernels (mirrors
+``repro.kernels.ref``)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_plain
 
 
 def crossbar_fwd_ref(x: torch.Tensor, g_plus: torch.Tensor,
@@ -39,6 +41,14 @@ def pulse_update_ref(g_plus: torch.Tensor, g_minus: torch.Tensor,
     gp = torch.clamp(g_plus + 0.5 * dw, 0.0, w_max)
     gm = torch.clamp(g_minus - 0.5 * dw, 0.0, w_max)
     return gp, gm
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention oracle at scale hd ** -0.5 (the reference
+    oracle's signature).  q (B,Sq,H,hd); k/v (B,Skv,K,hd)."""
+    return flash_attention_plain(q, k, v, scale=q.shape[-1] ** -0.5,
+                                 causal=causal)
 
 
 def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

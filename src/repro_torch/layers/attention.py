@@ -1,0 +1,218 @@
+"""Attention: prefill on the flash kernel, cached decode (port of the
+self-attention part of ``repro/layers/attention.py``).
+
+Prefill (``cache is None``) is causal self-attention over the whole
+sequence.  The reference computes it with ``chunked_attention`` in jnp;
+for causal attention with no window and ``Sq == Skv`` that is the same
+function as its Pallas ``flash_attention_kernel``, so the port routes it
+to ``kernels.ops.flash_attention`` with the layer's ``scale``: on the card
+the hand-written kernel (``kernels/csrc/flash_attention.cu``), on the CPU
+its plain version.  Decode attends one query over a cache buffer.
+
+bf16 operands enter the products widened to fp32 (a bf16 x bf16 product
+is exact in fp32), where the reference asks for fp32 accumulation; only
+the order of the sums differs.
+
+Not ported (ROADMAP Queue 1 item 10): sliding windows, cross-attention,
+bidirectional prefill, M-RoPE and ``chunked_attention`` itself.  They
+raise ``NotImplementedError``.
+
+KV caches are updated in place (the port's form of the reference's
+donated cache); nothing inside a step is read back to the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.layers.linear import XbarMode, dense_apply, dense_spec
+from repro_torch.layers.rope import apply_rope
+
+NEG_INF = -1e30
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 10)"
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    causal: bool = True
+    window: int | None = None           # sliding-window size (None = full)
+    rope_theta: float = 10000.0
+    mrope_sections: tuple[int, int, int] | None = None
+    softmax_scale: float | None = None
+
+    @property
+    def scale(self) -> float:
+        return self.softmax_scale or 1.0 / math.sqrt(self.head_dim)
+
+
+def attention_spec(cfg: AttnConfig, xbar: XbarMode | None = None) -> dict:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_spec(d, H * hd, ("fsdp", "heads"), bias=cfg.qkv_bias,
+                         xbar=xbar),
+        "wk": dense_spec(d, K * hd, ("fsdp", "heads"), bias=cfg.qkv_bias,
+                         xbar=xbar),
+        "wv": dense_spec(d, K * hd, ("fsdp", "heads"), bias=cfg.qkv_bias,
+                         xbar=xbar),
+        "wo": dense_spec(H * hd, d, ("heads", "fsdp"), xbar=xbar),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor
+          ) -> torch.Tensor:
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"M-RoPE is {NOT_PORTED}")
+    return apply_rope(x, positions, theta=cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention over a cache
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid: torch.Tensor, *,
+                     scale: float) -> torch.Tensor:
+    """q: (B, 1, H, hd); caches: (B, S, K, hd); valid: (B, S) bool mask.
+
+    q is rounded to the cache's dtype and p to the value cache's dtype
+    before their products, as the reference does; the products themselves
+    are fp32."""
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    f32 = torch.float32
+    qh = q.reshape(B, K, G, hd).to(k_cache.dtype).to(f32)
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k_cache.to(f32)) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(f32),
+                     v_cache.to(f32))
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cache structures
+# ---------------------------------------------------------------------------
+
+def init_self_cache(cfg: AttnConfig, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: str | torch.device = "cuda") -> dict:
+    """A full-attention layer's cache of ``max_len`` slots, with an
+    absolute-position tag per slot and the count of tokens seen.
+
+    ``dtype=torch.int8`` selects the quantized KV cache: sign-magnitude
+    int8 codes with one bf16 scale per (batch, slot, kv-head)."""
+    if cfg.window is not None:
+        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                      device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 1, K, hd) -> int8 codes + per-(B, 1, K) bf16 scale; arithmetic
+    in x's dtype, rounding half to even (as ``jnp.round``)."""
+    scale = torch.amax(torch.abs(x), dim=-1) / 127.0
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    codes = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
+    return codes.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor
+                   ) -> torch.Tensor:
+    return codes.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def _cache_append(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Write one token's k/v (B, 1, K, hd) at slot length % size, tag the
+    slot with its position and count the token, all in place on the
+    device (no host read); returns ``cache``."""
+    size = cache["k"].shape[1]
+    length = cache["length"]
+    slot = torch.remainder(length, size).reshape(1).long()
+    if "k_scale" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        cache["k"].index_copy_(1, slot, kq)
+        cache["v"].index_copy_(1, slot, vq)
+        cache["k_scale"].index_copy_(1, slot, ks)
+        cache["v_scale"].index_copy_(1, slot, vs)
+    else:
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, length.reshape(1))
+    length.add_(1)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Full layer (projections + rope + cache management)
+# ---------------------------------------------------------------------------
+
+def attention_apply(params: dict, x: torch.Tensor, cfg: AttnConfig, *,
+                    positions: torch.Tensor, cache: dict | None = None,
+                    xbar: XbarMode | None = None,
+                    compute_dtype: torch.dtype = torch.bfloat16
+                    ) -> tuple[torch.Tensor, dict | None]:
+    """Causal self-attention.
+
+    Prefill: ``cache is None`` and ``x`` (B, L, d) is the whole sequence.
+    Decode: ``x`` is (B, 1, d) and ``cache`` holds the k/v buffers, which
+    are updated in place and returned."""
+    if cache is not None and "pos" not in cache:
+        raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
+    if cfg.window is not None:
+        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
+    if cache is None and not cfg.causal:
+        raise NotImplementedError(f"bidirectional prefill is {NOT_PORTED}")
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = x.shape[0]
+
+    def proj(name, n):
+        return _split_heads(dense_apply(params[name], x,
+                                        compute_dtype=compute_dtype,
+                                        xbar=xbar), n, hd)
+
+    q, k, v = proj("wq", H), proj("wk", K), proj("wv", K)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
+
+    if cache is not None:
+        # decode: append one token, attend over the valid slots
+        cur = cache["length"].clone()      # position of the new token
+        _cache_append(cache, k, v)
+        kc, vc = cache["k"], cache["v"]
+        if "k_scale" in cache:
+            kc = _dequantize_kv(kc, cache["k_scale"])
+            vc = _dequantize_kv(vc, cache["v_scale"])
+        pos = cache["pos"]
+        valid = (pos >= 0) & (pos <= cur)
+        y = decode_attention(q, kc, vc, valid[None, :].expand(B, -1),
+                             scale=cfg.scale)
+    else:
+        y = kernel_ops.flash_attention(q, k, v, causal=True, scale=cfg.scale)
+
+    y = y.reshape(B, y.shape[1], H * hd)
+    out = dense_apply(params["wo"], y, compute_dtype=compute_dtype, xbar=xbar)
+    return out, cache

@@ -1,0 +1,210 @@
+"""Decoder-only LM assembly: pattern-cycled blocks over stacked periods
+(port of ``repro/models/lm.py``, the ``attn`` block kind).
+
+The layer stack is grouped into *periods* (one cycle of
+``cfg.block_pattern``), stacked on a leading axis as in the reference.
+Where the reference runs them under ``jax.lax.scan``, the port runs a
+Python loop over views of the stacked parameters (no copies) and casts
+each period's parameters to the compute dtype as the reference's scan
+body does.  Decode caches are stacked the same way and updated in place.
+
+Only the ``attn`` kind (pre-norm self-attention + MLP, the dense
+architectures) is ported; ``local``, ``moe``, ``rec`` and ``ssd`` blocks
+and VLM patches raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import cast_for_compute, stack_specs, tree_map
+from repro_torch.layers import attention as attn_mod
+from repro_torch.layers.attention import NOT_PORTED
+from repro_torch.layers import embedding as emb_mod
+from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers.linear import XbarMode
+from repro_torch.layers.norms import (layernorm_apply, layernorm_spec,
+                                      rmsnorm_apply, rmsnorm_spec)
+
+
+def _norm_fns(cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return layernorm_spec, layernorm_apply
+    return rmsnorm_spec, rmsnorm_apply
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is {NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def block_spec(cfg: ModelConfig, kind: str, xbar: XbarMode | None) -> dict:
+    _check_kind(kind)
+    nspec, _ = _norm_fns(cfg)
+    d = cfg.d_model
+    return {"ln1": nspec(d),
+            "attn": attn_mod.attention_spec(cfg.attn(None), xbar),
+            "ln2": nspec(d),
+            "mlp": mlp_mod.mlp_spec(d, cfg.d_ff, gated=cfg.gated_mlp,
+                                    xbar=xbar)}
+
+
+def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
+                *, positions: torch.Tensor, cache: dict | None,
+                xbar: XbarMode | None, compute_dtype: torch.dtype
+                ) -> tuple[torch.Tensor, dict | None]:
+    _check_kind(kind)
+    _, napply = _norm_fns(cfg)
+    h, cache = attn_mod.attention_apply(
+        params["attn"], napply(params["ln1"], x), cfg.attn(None),
+        positions=positions, cache=cache, xbar=xbar,
+        compute_dtype=compute_dtype)
+    x = x + h
+    h = mlp_mod.mlp_apply(params["mlp"], napply(params["ln2"], x),
+                          act=cfg.mlp_act, xbar=xbar,
+                          compute_dtype=compute_dtype)
+    return x + h, cache
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype: torch.dtype, device) -> dict:
+    _check_kind(kind)
+    return attn_mod.init_self_cache(cfg.attn(None), batch, max_len, dtype,
+                                    device)
+
+
+# ---------------------------------------------------------------------------
+# Stack layout: prefix blocks, stacked periods, suffix blocks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    prefix: tuple[str, ...]
+    pattern: tuple[str, ...]
+    periods: int
+    suffix: tuple[str, ...]
+
+
+def stack_layout(cfg: ModelConfig) -> StackLayout:
+    kinds = cfg.layer_kinds()
+    prefix = tuple(kinds[: cfg.first_dense_layers])
+    rest = kinds[cfg.first_dense_layers:]
+    pat = cfg.block_pattern
+    periods = len(rest) // len(pat)
+    suffix = tuple(rest[periods * len(pat):])
+    return StackLayout(prefix, pat, periods, suffix)
+
+
+def _period_spec(cfg: ModelConfig, xbar) -> dict:
+    return {f"b{i}_{k}": block_spec(cfg, k, xbar)
+            for i, k in enumerate(cfg.block_pattern)}
+
+
+def lm_spec(cfg: ModelConfig) -> dict:
+    if cfg.vlm_patches:
+        raise NotImplementedError(f"VLM patches are {NOT_PORTED}")
+    xbar = XbarMode.from_config(cfg)
+    lay = stack_layout(cfg)
+    spec: dict[str, Any] = {
+        "embed": emb_mod.embedding_spec(cfg.padded_vocab, cfg.d_model),
+        "prefix": tuple(block_spec(cfg, k, xbar) for k in lay.prefix),
+        "suffix": tuple(block_spec(cfg, k, xbar) for k in lay.suffix),
+        "final_norm": _norm_fns(cfg)[0](cfg.d_model),
+    }
+    if lay.periods:
+        spec["stack"] = stack_specs(_period_spec(cfg, xbar), lay.periods)
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = emb_mod.lm_head_spec(cfg.d_model, cfg.padded_vocab,
+                                               xbar)
+    return spec
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: str | torch.device = "cuda") -> dict:
+    lay = stack_layout(cfg)
+    cache: dict[str, Any] = {
+        "prefix": tuple(init_block_cache(cfg, k, batch, max_len, dtype,
+                                         device) for k in lay.prefix),
+        "suffix": tuple(init_block_cache(cfg, k, batch, max_len, dtype,
+                                         device) for k in lay.suffix),
+    }
+    if lay.periods:
+        period = {f"b{i}_{k}": init_block_cache(cfg, k, batch, max_len,
+                                                dtype, device)
+                  for i, k in enumerate(lay.pattern)}
+        cache["stack"] = tree_map(
+            lambda a: a[None].expand((lay.periods,) + a.shape).clone(),
+            period)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    if cfg.vlm_patches:
+        raise NotImplementedError(f"VLM patches are {NOT_PORTED}")
+    return emb_mod.embed_apply(params["embed"], batch["tokens"],
+                               compute_dtype)
+
+
+def lm_forward(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+               positions: torch.Tensor, caches: dict | None = None
+               ) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, L, d) embedded inputs -> (hidden, caches).  ``caches`` (decode)
+    are updated in place and returned; prefill passes None."""
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    xbar = XbarMode.from_config(cfg)
+    lay = stack_layout(cfg)
+
+    def run(kind, p, x, c):
+        return block_apply(cfg, kind, p, x, positions=positions, cache=c,
+                           xbar=xbar, compute_dtype=compute_dtype)[0]
+
+    for i, kind in enumerate(lay.prefix):
+        x = run(kind, params["prefix"][i], x,
+                caches["prefix"][i] if caches else None)
+    for p in range(lay.periods):
+        # views of period p (no copies), cast as the reference's scan body
+        p_params = cast_for_compute(
+            tree_map(lambda a: a[p], params["stack"]), compute_dtype)
+        p_cache = (tree_map(lambda a: a[p], caches["stack"])
+                   if caches is not None else None)
+        for i, kind in enumerate(lay.pattern):
+            key = f"b{i}_{kind}"
+            x = run(kind, p_params[key], x,
+                    p_cache[key] if p_cache is not None else None)
+    for i, kind in enumerate(lay.suffix):
+        x = run(kind, params["suffix"][i], x,
+                caches["suffix"][i] if caches else None)
+
+    x = _norm_fns(cfg)[1](params["final_norm"], x)
+    return x, caches
+
+
+def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor
+              ) -> torch.Tensor:
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        logits = emb_mod.lm_head_apply({}, hidden,
+                                       tied_table=params["embed"]["table"],
+                                       compute_dtype=compute_dtype,
+                                       valid_vocab=cfg.vocab_size)
+    else:
+        logits = emb_mod.lm_head_apply(params["lm_head"], hidden,
+                                       compute_dtype=compute_dtype,
+                                       valid_vocab=cfg.vocab_size)
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits

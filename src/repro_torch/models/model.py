@@ -1,0 +1,119 @@
+"""Model facade (port of ``repro/models/model.py``, the decoder-only
+``_build_lm``).
+
+``build_model(cfg, device)`` returns a :class:`Model` with:
+
+  spec           ParamSpec tree (drives init and param_count)
+  init(gen)      concrete parameters, drawn from a ``torch.Generator`` on
+                 the model's device
+  prefill_fn     (params, batch) -> logits
+  decode_fn      (params, cache, batch) -> (logits, cache); the cache is
+                 updated in place (the reference donates it)
+  init_cache     (batch, max_len[, dtype]) -> cache tree on the device
+  input_specs    (kind, seq_len, global_batch) -> (shape, dtype) tuples
+
+The device is ``cuda`` unless the caller passes ``device="cpu"``; a CUDA
+device without a card raises.  The LM training path (``loss_fn``) and the
+encoder-decoder family are not ported (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.models import lm as lm_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    spec: Any
+    device: torch.device
+    prefill_fn: Callable
+    decode_fn: Callable
+    init_cache: Callable
+    input_specs: Callable
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Parameters drawn from ``generator``, which must live on the
+        model's device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"the generator lies on {generator.device}, "
+                             f"the model on {self.device}")
+        return shd.init_params(generator, self.spec)
+
+
+def _positions_for(cfg: ModelConfig, B: int, L: int, *,
+                   device: torch.device,
+                   start: torch.Tensor | int = 0) -> torch.Tensor:
+    """(B, L) positions start .. start + L - 1 (``start`` an int or a 0-d
+    tensor on ``device``; no host read either way)."""
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"M-RoPE positions are {lm_mod.NOT_PORTED}")
+    pos = torch.arange(L, device=device)[None, :] + start
+    return pos.expand(B, L)
+
+
+def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
+    spec = lm_mod.lm_spec(cfg)
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch):
+        B, L = batch["tokens"].shape
+        x = lm_mod.embed_inputs(cfg, params, batch, compute_dtype)
+        positions = _positions_for(cfg, B, L, device=x.device)
+        h, _ = lm_mod.lm_forward(cfg, params, x, positions=positions)
+        return lm_mod.lm_logits(cfg, params, h)
+
+    @torch.no_grad()
+    def decode_fn(params, cache, batch):
+        tok = batch["tokens"]                      # (B, 1)
+        B = tok.shape[0]
+        x = lm_mod.embed_inputs(cfg, params, {"tokens": tok}, compute_dtype)
+        positions = _positions_for(cfg, B, 1, start=batch["length"],
+                                   device=x.device)
+        h, cache = lm_mod.lm_forward(cfg, params, x, positions=positions,
+                                     caches=cache)
+        return lm_mod.lm_logits(cfg, params, h), cache
+
+    def init_cache(batch: int, max_len: int,
+                   dtype: torch.dtype | None = None,
+                   device: str | torch.device = device) -> dict:
+        dtype = getattr(torch, cfg.kv_cache_dtype) if dtype is None \
+            else dtype
+        return lm_mod.init_lm_cache(cfg, batch, max_len, dtype, device)
+
+    def input_specs(kind: str, seq_len: int, global_batch: int):
+        tok = ((global_batch, seq_len), torch.int32)
+        if kind == "train":
+            return {"tokens": tok, "labels": tok}
+        if kind == "prefill":
+            return {"tokens": tok}
+        # decode: one token, cache of seq_len capacity; shapes from a cache
+        # built on the meta device (nothing allocated)
+        batch = {"tokens": ((global_batch, 1), torch.int32),
+                 "length": ((), torch.int32)}
+        cache = shd.tree_map(lambda a: (tuple(a.shape), a.dtype),
+                             init_cache(global_batch, seq_len,
+                                        device="meta"))
+        return batch, cache
+
+    return Model(cfg, spec, device, prefill_fn, decode_fn, init_cache,
+                 input_specs)
+
+
+def build_model(cfg: ModelConfig,
+                device: str | torch.device = "cuda") -> Model:
+    """The model of ``cfg`` on ``device`` (``cuda`` unless the caller asks
+    for the CPU; raises without a card)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"the encoder-decoder family is {lm_mod.NOT_PORTED}")
+    return _build_lm(cfg, resolve_device(device))
