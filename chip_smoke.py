@@ -9,10 +9,11 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and turns TF32
    off for every fp32 matmul and convolution;
-2. builds the seven kernels from ``src/repro_torch/kernels/csrc`` (five
-   crossbar kernels, the k-means assignment and flash attention; one nvcc
-   per source, all started together) and prints the build time and ptxas' register/spill
-   report;
+2. builds the eight kernel sources from ``src/repro_torch/kernels/csrc``
+   (five crossbar kernels, the k-means assignment, flash attention on the
+   tensor cores for bf16 and on the CUDA cores for fp32; one nvcc per
+   source, all started together) and prints the build time and ptxas'
+   register/spill report;
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
@@ -32,14 +33,23 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
    duplicated centers (exact ties go to the lowest index), timed beside its
    plain version, ``torch.cdist(p=1).argmin`` and the bound; and the flash
-   attention kernel at qwen2-0.5b's prefill shape (B=4, S=2048, 14 heads
+   attention kernels at qwen2-0.5b's prefill shape (B=4, S=2048, 14 heads
    on 2, hd 64) in bf16 and fp32, the yi-6b head shape (1, 4096, 32 on 4,
    hd 128), a ragged S = 1000, non-causal 384, MHA, the reference test's
-   four shapes and strided views (through ``ops.flash_attention``, the
-   model's wrapper), timed beside its plain version,
+   four shapes, each in both of the reference's functions
+   (``semantics="chunked"``, the LM prefill's, and ``"pallas"``) against
+   the matching plain version, the bf16 chunked function also against the
+   plain version at the kernel's own 64-key tiles, and each bf16
+   function's mean distance to its own plain version at most a quarter of
+   its distance to the other function's; and strided views (through
+   ``ops.flash_attention``, the model's wrapper: fp32 read through their
+   strides, bf16 aligned views uncopied, a misaligned one copied and
+   counted), timed beside the plain version,
    ``scaled_dot_product_attention`` (never called by the port) and the
-   bound (q.k at the bf16 tensor-core rate where its operands are bf16,
-   p.v at the fp32 rate);
+   bound (both products, four for the Pallas function in bf16, at the
+   bf16 tensor-core rate for bf16 operands, at the fp32 rate for fp32;
+   the exponentials' co-bound printed beside), with each instance's
+   registers, spills and shared memory;
 4. eager recognition path (``compiled=False``): ``build_chip`` for
    mnist_class at full width (784-300-200-100-10, 13 cores) runs
    ``infer_stream`` on 16 samples and on a 4096-sample wave, isolet_class
@@ -87,26 +97,32 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    kdd_anomaly (41-15-41, 3 epochs) and ``reconstruction_error`` on normal
    and attack traffic, printing detection at 4 % FPR and AUC beside the
    paper's 96.6 %, and each stage's time (CUDA events);
-10. LM prefill path, the flash count set to 0 before and read after:
+10. LM prefill path, the flash counts set to 0 before and read after:
     ``build_model`` for the full qwen2-0.5b config on ``cuda``, parameters
     from ``init`` with seed 0, ``prefill_fn`` on 4 x 2048 tokens drawn from
-    seed 0: exactly 24 flash launches (one per layer), logits (4, 2048,
+    seed 0: exactly 24 flash launches (one per layer), all on the
+    tensor-core kernel in ``chunked_attention``'s function, logits (4, 2048,
     152064) finite with the 128 pad columns at -1e30; its time (CUDA
-    events), tokens/s and a profile;
+    events), tokens/s and a profile; then the same in float32 compute
+    (``compute_dtype="float32"``, the same parameters), its counts set to
+    0 before and read after: 24 launches, all on the CUDA-core kernel in
+    the chunked function, and its time;
 11. LM decode against prefill at full width: ``BatchedServer(batch=4,
     max_len=256)`` serves ``launch/serve.py``'s 8-token prompts with
     ``max_new=32`` (39 steps, 128 tokens), its decode logits recorded and
     its flash launches counted (0: the server only decodes, and decode
     attention is plain); ``prefill_fn`` on each slot's prompt + generated
     tokens (a check: its 24 launches are not the path's) must give the same logits at every step within 0.125 in bf16
-    and 1e-3 in float32 compute with a float32 cache, and every generated
+    and 1e-3 in float32 compute with a float32 cache (its prefill on the
+    fp32 kernel, also in the chunked function), and every generated
     token must be the prefill argmax except where its top-2 gap lies within
     that bar (counted); decode ms per step, tokens/s and a profiled step;
 12. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
-    kernels and only those), one ``{"kernels": [...]}`` line with seven
-    entries, and last ``{"ok": true, "device": {...}}``.
+    kernels and only those), one ``{"kernels": [...]}`` line with eight
+    entries (the fp32 flash kernel as ``flash_attention_simt``), and last
+    ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -120,9 +136,13 @@ the four-call sequence must agree exactly.  k-means assignments are
 equal, except where the two smallest distances of a sample (recomputed in
 float64) lie within 1e-5 relative of each other.  Flash attention in
 fp32 within 2e-5 absolute plus relative (the reference's kernel bar); in
-bf16 within one bf16 step of the plain result (the spacing of bf16 at the
-larger magnitude, plus 1e-6: both sides round an fp32 value once).  Any
-failure raises.
+bf16, the Pallas function within one bf16 step of the plain result (the
+spacing of bf16 at the larger magnitude, plus 1e-6: both sides round an
+fp32 value once), the chunked function within one bf16 step plus 2^-8 of
+the plain side's sum_j p_j |v_j| / l against the plain version at the
+reference's 512-key chunks (``check_flash``), and within one bf16 step
+plus 2^-7 max_j p_j |v_j| / l against the plain version at the kernel's
+64-key tiles (``check_chunked_tile`` derives both).  Any failure raises.
 """
 from __future__ import annotations
 
@@ -147,6 +167,7 @@ MAX_DW, LEVELS, W_MAX = 0.05, 128, 1.0   # PAPER_SPEC's pulse rule
 LR = 0.1                 # the CLI's default learning rate
 FP32_FLOPS = 67e12       # H100 SXM fp32 peak outside the tensor cores
 BF16_FLOPS = 989e12      # H100 SXM bf16 tensor-core peak (dense)
+EXP_RATE = 3.9e12        # H100 SXM special-function (exp) rate, per second
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3 bandwidth
 SEED = 0
 
@@ -170,7 +191,8 @@ TRAIN_SHAPES = {
 # (K, N) of mnist's four layers: crossbar_apply(use_kernel=True) shapes
 MNIST_LAYERS = [(784, 300), (300, 200), (200, 100), (100, 10)]
 KERNELS = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
-           "crossbar_train", "kmeans_assign", "flash_attention")
+           "crossbar_train", "kmeans_assign", "flash_attention",
+           "flash_attention_tc")
 # (chip, batch, lr) of the training main path, in order
 STEPS = ([("mnist_class", 1, LR)] * 2 + [("mnist_class", 1, LR / 2)]
          + [("mnist_class", 4096, LR)] * 2 + [("isolet_class", 256, LR)])
@@ -1493,46 +1515,221 @@ def bf16_step(x: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def check_flash(got, want, dtype, what) -> float:
-    """fp32: |Δ| <= FA_TOL (1 + |want|); bf16: one bf16 step at the larger
-    of the two.  Raises otherwise; returns the largest |Δ|."""
+def check_flash(got, want, dtype, what, semantics="pallas",
+                wam=None) -> float:
+    """Hold a flash kernel's output against its plain version; raises
+    unless every |got - want| is within the bar, returns the largest.
+
+    fp32: FA_TOL (1 + |want|), the reference's kernel bar.  bf16, the
+    Pallas function: one bf16 step at max(|got|, |want|), plus 1e-6: both
+    sides hold p to 24 bits (the tensor-core kernel as three bf16 terms)
+    and round an fp32 value once.
+
+    bf16, the chunked function against the plain version at 512-key
+    chunks: one bf16 step at max(|got|, |want|) plus 2^-8 wam, wam =
+    sum_j p_j |v_j| / l from the plain side in fp32.  Both sides compute
+    o = sum_j bf16(p~_j) v_j / l with p~_j = exp(s_j - m'), m' the running
+    max when key j's block is reached.  The kernel's block is 64 keys and
+    this plain version's chunk 512, so m' and with it the rounding of p~_j
+    differ; each rounding is within half a bf16 step, at most 2^-8 p~_j,
+    so after the exact rescaling to the final max the two p_j differ by
+    at most 2^-7 p_j.  Those errors have independent signs from key to
+    key, so the two fp32 outputs differ by far less than 2^-7 wam; the
+    run prints the largest excess over one step as a share of wam (the
+    margin under 2^-8).  Each side then rounds to bf16, at most half a
+    step at its own magnitude: one step at the larger, in all.  Random
+    inputs make |o| small beside wam, so a bar in steps of |o| alone would
+    be wrong.  This bar cannot tell the two functions apart (rounding p
+    moves o by about as much); ``check_chunked_tile`` and
+    ``check_functions`` do."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     if dtype == "float32":
         bar = FA_TOL + FA_TOL * want.abs()
+    elif semantics == "chunked":
+        bar = bf16_step(torch.maximum(got.abs(), want.abs())) + 2.0 ** -8 * wam
     else:
         bar = bf16_step(torch.maximum(got.abs(), want.abs())) + 1e-6
     if not bool(torch.isfinite(got).all()) or not bool((err <= bar).all()):
-        raise AssertionError(f"flash_attention {what}: max |err| "
-                             f"{float(err.max())}")
+        raise AssertionError(f"flash_attention {what} ({semantics}): max "
+                             f"|err| {float(err.max())}")
     return float(err.max())
 
 
 def flash_bound(B, Sq, Skv, H, K, hd, causal, dtype,
-                scale) -> tuple[float, float]:
-    """(ms at the operations' peaks, ms at the HBM rate) of one call.  Per
-    (query, visible key) pair: 2 B H hd FLOPs of scaled q . k and 2 B H hd
-    of p . v.  q . k runs at the bf16 tensor-core rate where its operands
-    are bf16 (bf16 inputs and a power-of-two scale, so the scaled q is
-    exact in bf16), else at the fp32 rate; p . v at the fp32 rate (p is
-    fp32).  q, k, v read once and the output written once."""
+                semantics) -> tuple[float, float, float]:
+    """(ms at the products' peak, ms at the HBM rate, ms of the
+    exponentials at the special-function rate) of one call.  Per (query,
+    visible key) pair: 2 B H hd FLOPs in each product and one exp.  bf16
+    operands run the products on the tensor cores (989 TFLOP/s): two for
+    the chunked function, four for the Pallas one (p . v as p_hi . v +
+    p_mid . v + p_lo . v); fp32 operands run both at the fp32 rate.  q,
+    k, v read once and the output written once."""
     pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
              else Sq * Skv)
-    half = 2.0 * B * H * hd * pairs
-    bf16_qk = dtype == torch.bfloat16 and math.frexp(scale)[0] == 0.5
-    op_s = half / (BF16_FLOPS if bf16_qk else FP32_FLOPS) + half / FP32_FLOPS
+    product = 2.0 * B * H * hd * pairs
+    if dtype == torch.bfloat16:
+        n = 2 if semantics == "chunked" else 4
+        op_s = n * product / BF16_FLOPS
+    else:
+        op_s = 2 * product / FP32_FLOPS
     moved = (torch.finfo(dtype).bits // 8) * (2 * B * Sq * H * hd
                                               + 2 * B * Skv * K * hd)
-    return op_s * 1e3, moved / HBM_BYTES_S * 1e3
+    return (op_s * 1e3, moved / HBM_BYTES_S * 1e3,
+            B * H * pairs / EXP_RATE * 1e3)
 
 
-def flash_kernel_phase(fak, ops, gen) -> tuple[float, list[dict]]:
-    """The flash kernel against its plain version at FLASH_CASES (and, on
-    strided views, through the model's wrapper ``ops.flash_attention``),
-    timed (CUDA events, and its device time under the
-    profiler) beside the plain version, ``scaled_dot_product_attention``
-    on (B, H, S, hd) transposes made outside the timed region, and the
-    bound; returns (max |err|, rows).  Launches here are not counted."""
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, spills and static shared memory of each kernel instance
+    in a build log (``nvcc -Xptxas -v``), by mangled name."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem"] = int(m.group(1))
+    return out
+
+
+def flash_instance(report, dtype, hd, semantics) -> dict:
+    """The ptxas numbers and the dynamic shared memory of the kernel
+    instance a call runs: ``flash_tc_fwd<hd, chunked>`` for bf16 (two q
+    tiles and two stages of k and v), ``flash_fwd<ceil(hd/16), chunked>``
+    for fp32."""
+    chunked = int(semantics == "chunked")
+    if dtype == torch.bfloat16:
+        key, smem = f"flash_tc_fwdILi{hd}ELb{chunked}E", 6 * 64 * hd * 2
+    else:
+        dc = next(d for d in (1, 2, 4, 8) if hd <= 16 * d)
+        key = f"flash_fwdILi{dc}ELb{chunked}E"
+        smem = 4 * ((64 + 64) * (hd | 1) + 64 * 16 * dc + 64 * (64 + 16))
+    found = [v for k, v in report.items() if key in k]
+    if len(found) != 1:
+        raise AssertionError(f"ptxas report: {len(found)} instances match "
+                             f"{key}")
+    return {**found[0], "dynamic_smem": smem}
+
+
+def weighted_abs_mean(fak, q, k, v, scale, causal) -> torch.Tensor:
+    """sum_j p_j |v_j| / l in fp32, p the plain (Pallas) softmax."""
+    return fak.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     scale=scale, causal=causal)
+
+
+def plain_attention(fak, semantics, q, k, v, scale, causal, kv_chunk=512):
+    """The plain version of ``semantics``: the chunked function at
+    ``kv_chunk`` x ``kv_chunk`` chunks (the reference's 512 unless given),
+    or the Pallas function."""
+    if semantics == "chunked":
+        return fak.chunked_attention_plain(q, k, v, scale=scale,
+                                           causal=causal, q_chunk=kv_chunk,
+                                           kv_chunk=kv_chunk)
+    return fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
+
+
+def max_weighted_term(q, k, v, scale, causal, block=64) -> torch.Tensor:
+    """max_j p_j |v_j| / l of each output in fp32, p the plain softmax;
+    ``block`` queries at a time."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    kf = k.float()
+    va = v.float().abs().permute(0, 2, 1, 3)[:, :, None, None]
+    keys = torch.arange(Skv, device=q.device)[None, :]
+    out = torch.empty((B, Sq, H, hd), device=q.device)
+    for i0 in range(0, Sq, block):
+        qb = q[:, i0:i0 + block].float()
+        n = qb.shape[1]
+        s = torch.einsum("bqkgd,bskd->bkgqs",
+                         qb.reshape(B, n, K, H // K, hd), kf) * scale
+        if causal:
+            rows = i0 + torch.arange(n, device=q.device)[:, None]
+            s = s.masked_fill(keys > rows, -1e30)
+        p = torch.softmax(s, dim=-1)                   # (B, K, G, n, Skv)
+        t = (p[..., None] * va).amax(dim=-2)           # (B, K, G, n, hd)
+        out[:, i0:i0 + n] = t.permute(0, 3, 1, 2, 4).reshape(B, n, H, hd)
+    return out
+
+
+def check_chunked_tile(fak, got, q, k, v, scale, causal, what):
+    """Hold the bf16 kernel's chunked function against the plain chunked
+    function at the kernel's own 64-key tiles; raises unless every
+    |got - want| <= one bf16 step at max(|got|, |want|) + 1e-6 + 2^-7
+    max_j p_j |v_j| / l, returns (max |err|, the plain output).
+
+    With the same tiles both sides round each p~_j against the same
+    running max; only their fp32 scores differ (q . k summed in other
+    orders), in the last bit.  A p~_j at a bf16 rounding boundary may then
+    round one bf16 step (at most 2^-7 p~_j) apart, which moves the output
+    by at most 2^-7 p_j |v_j| / l, and each side rounds the output once.
+    The Pallas function, whose p is not rounded, lies up to 2^-8 p_j |v_j|
+    / l away at every key, not at a few, and fails this bar on short rows
+    (tests/test_torch_chunked_attention.py shows it on the CPU);
+    ``check_functions`` tells the two apart at every shape."""
+    want = plain_attention(fak, "chunked", q, k, v, scale, causal,
+                           kv_chunk=64)
+    g, w = got.float(), want.float()
+    bar = (bf16_step(torch.maximum(g.abs(), w.abs())) + 1e-6
+           + 2.0 ** -7 * max_weighted_term(q, k, v, scale, causal))
+    err = (g - w).abs()
+    if not bool((err <= bar).all()):
+        raise AssertionError(f"flash_attention {what} (chunked, 64-key "
+                             f"tiles): max |err| {float(err.max())}, "
+                             f"{int((err > bar).sum())} outputs past the bar")
+    return float(err.max()), want
+
+
+def check_functions(got, want, what) -> dict:
+    """Each bf16 kernel function nearer its own plain version than the
+    other function's: the mean |kernel - plain| of ``got[sem]`` against
+    ``want[sem]`` at most a quarter of that against the other function's
+    plain version, for both functions; raises otherwise, returns the four
+    means.  Rounding p to bf16 moves an output by about one step as often
+    as not, while the same function on both sides differs only where an
+    fp32 last bit moves a rounding: so a kernel that computed the other
+    function, or a semantics flag wired backwards, fails."""
+    mean = {f"{a} vs plain {b}": float((got[a].float() - want[b].float()
+                                        ).abs().mean())
+            for a in ("chunked", "pallas") for b in ("chunked", "pallas")}
+    for a, b in (("chunked", "pallas"), ("pallas", "chunked")):
+        if not 4 * mean[f"{a} vs plain {a}"] <= mean[f"{a} vs plain {b}"]:
+            raise AssertionError(f"flash_attention {what}: the {a} kernel "
+                                 f"is not nearer its own function: {mean}")
+    return mean
+
+
+def device_ms(fn, name: str) -> float:
+    """Device time per call of the kernel ``name`` in ``fn`` (profiler; a
+    second profile if the first one reports no such kernel)."""
+    for _ in range(2):
+        top = profile_device(fn, reps=5)["top"]
+        found = [t["ms"] for t in top if f"::{name}<" in t["kernel"]]
+        if len(found) == 1:
+            return found[0]
+    raise AssertionError(f"the profile of {name} shows {top}")
+
+
+def flash_kernel_phase(fak, ops, gen, report) -> tuple[float, list[dict]]:
+    """The flash kernels against their plain versions at FLASH_CASES, each
+    row in both of the reference's functions (and, on strided views,
+    through the model's wrapper ``ops.flash_attention``), timed (CUDA
+    events, and the device time under the profiler) beside the plain
+    version, ``scaled_dot_product_attention`` on (B, H, S, hd) transposes
+    made outside the timed region, and the bound; bf16 rows also go
+    through ``check_chunked_tile`` and ``check_functions``.  Returns (max
+    |err|, rows).  Launches here are not counted."""
     import torch.nn.functional as F
     worst, rows = 0.0, []
     for B, S, H, K, hd, causal, dt, what in FLASH_CASES:
@@ -1544,74 +1741,160 @@ def flash_kernel_phase(fak, ops, gen) -> tuple[float, list[dict]]:
         v = torch.randn((B, S, K, hd), generator=gen, device="cuda"
                         ).to(dtype)
         scale = hd ** -0.5
-        got = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal)
-        want = fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
-        torch.cuda.synchronize()
-        if got.dtype != dtype or got.shape != (B, S, H, hd):
-            raise AssertionError(f"flash_attention {what}: {got.dtype} "
-                                 f"{tuple(got.shape)}")
-        err = check_flash(got, want, dt, what)
-        worst = max(worst, err)
+        wam = (weighted_abs_mean(fak, q, k, v, scale, causal)
+               if dtype == torch.bfloat16 else None)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        op_ms, byte_ms = flash_bound(B, S, S, H, K, hd, causal, dtype,
-                                     scale)
-        rows.append({
-            "kernel": "flash_attention", "B": B, "S": S, "H": H, "K": K,
-            "hd": hd, "causal": causal, "dtype": dt, "case": what,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: fak.flash_attention_kernel(
-                q, k, v, scale=scale, causal=causal), iters=10),
-            "device_ms": next(
-                t["ms"] for t in profile_device(
-                    lambda: fak.flash_attention_kernel(
-                        q, k, v, scale=scale, causal=causal),
-                    reps=5)["top"] if "flash_fwd" in t["kernel"]),
-            "plain_ms": cuda_ms(lambda: fak.flash_attention_plain(
-                q, k, v, scale=scale, causal=causal), iters=5),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale,
-                enable_gqa=True), iters=10),
-            "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes"})
-        del q, k, v, qt, kt, vt, got, want
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True),
+            iters=10)
+        name = "flash_tc_fwd" if dtype == torch.bfloat16 else "flash_fwd"
+        outs, plains = {}, {}
+        for sem in ("chunked", "pallas"):
+            def run():
+                return fak.flash_attention_kernel(q, k, v, scale=scale,
+                                                  causal=causal,
+                                                  semantics=sem)
+            got = outs[sem] = run()
+            want = plain_attention(fak, sem, q, k, v, scale, causal)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != (B, S, H, hd):
+                raise AssertionError(f"flash_attention {what}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = check_flash(got, want, dt, what, sem, wam)
+            worst = max(worst, err)
+            checks = {}
+            if dtype == torch.bfloat16 and sem == "chunked":
+                over = ((got.float() - want.float()).abs()
+                        - bf16_step(torch.maximum(got.float().abs(),
+                                                  want.float().abs())))
+                checks["excess over one step / wam, 512-key plain"] = float(
+                    (over / wam).max())
+                tile_err, plains["chunked"] = check_chunked_tile(
+                    fak, got, q, k, v, scale, causal, what)
+                checks["max_abs_err, 64-key plain"] = tile_err
+                worst = max(worst, tile_err)
+            elif dtype == torch.bfloat16:
+                plains["pallas"] = want
+            op_ms, byte_ms, exp_ms = flash_bound(B, S, S, H, K, hd, causal,
+                                                 dtype, sem)
+            rows.append({
+                "kernel": "flash_attention", "B": B, "S": S, "H": H,
+                "K": K, "hd": hd, "causal": causal, "dtype": dt,
+                "case": what, "semantics": sem, "route": fak.route(dtype),
+                "max_abs_err": err,
+                "ms": cuda_ms(run, iters=10),
+                "device_ms": device_ms(run, name),
+                "plain_ms": cuda_ms(lambda: plain_attention(
+                    fak, sem, q, k, v, scale, causal), iters=5),
+                "library_ms": library_ms,
+                "bound_ms": max(op_ms, byte_ms),
+                "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                "exp_bound_ms": exp_ms,
+                **checks,
+                **flash_instance(report, dtype, hd, sem)})
+            del got, want
+        if dtype == torch.bfloat16:
+            means = check_functions(outs, plains, what)
+            for r in rows[-2:]:
+                r["mean |err| by function"] = means
+        del q, k, v, qt, kt, vt, wam, outs, plains
     # strided operands through the model's wrapper: q, k, v as (B, S,
-    # heads, hd) views of (B, heads, S, hd) buffers go to the kernel as
-    # they are and are read through their strides, nothing is copied
-    qb = torch.randn((2, 14, 300, 64), generator=gen, device="cuda")
-    kb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
-    vb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
-    q, k, v = (t.transpose(1, 2) for t in (qb, kb, vb))
-    before = ops.flash_attention.launches
-    got = ops.flash_attention(q, k, v, scale=0.125)
-    if ops.flash_attention.launches != before + 1:
-        raise AssertionError("ops.flash_attention did not launch the kernel "
-                             "on strided CUDA views")
-    want = fak.flash_attention_plain(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), scale=0.125)
-    worst = max(worst, check_flash(got, want, "float32", "strided views"))
-    print(f"flash kernel phase: {len(FLASH_CASES)} shapes + strided views "
-          f"within their bars (fp32 {FA_TOL} abs + rel; bf16 one bf16 "
-          f"step at the larger |value| + 1e-6); max |err| {worst:.3e}")
+    # heads, hd) views of (B, heads, S, hd) buffers.  fp32 goes to its
+    # kernel as it is, read through the strides; bf16 views with 16-byte
+    # aligned rows go uncopied, a view whose rows are not 16-byte aligned
+    # is copied contiguous and counted on operand_copies.
+    views = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        qb = torch.randn((2, 14, 300, 64), generator=gen, device="cuda")
+        kb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
+        vb = torch.randn((2, 2, 300, 64), generator=gen, device="cuda")
+        views[dt] = [t.to(dtype).transpose(1, 2) for t in (qb, kb, vb)]
+    wide = torch.randn((2, 300, 2, 68), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    views["bfloat16, k heads 136 bytes apart"] = [
+        views["bfloat16"][0], wide[..., :64], views["bfloat16"][2]]
+    for what, (q, k, v) in views.items():
+        dt = "float32" if q.dtype == torch.float32 else "bfloat16"
+        for sem in ("chunked", "pallas"):
+            before = ops.flash_attention.launches
+            copies = fak.flash_attention_kernel.operand_copies
+            got = ops.flash_attention(q, k, v, scale=0.125, semantics=sem)
+            if ops.flash_attention.launches != before + 1:
+                raise AssertionError("ops.flash_attention did not launch "
+                                     "the kernel on strided CUDA views")
+            copied = fak.flash_attention_kernel.operand_copies - copies
+            if copied != (1 if "136 bytes" in what else 0):
+                raise AssertionError(f"strided views ({what}): {copied} "
+                                     f"operands copied")
+            want = plain_attention(fak, sem, q.contiguous(), k.contiguous(),
+                                   v.contiguous(), 0.125, True)
+            wam = (weighted_abs_mean(fak, q, k, v, 0.125, True)
+                   if dt == "bfloat16" else None)
+            worst = max(worst, check_flash(got, want, dt,
+                                           f"strided views, {what}", sem,
+                                           wam))
+    print(f"flash kernel phase: {len(FLASH_CASES)} shapes x 2 functions + "
+          f"strided views within their bars (fp32 {FA_TOL} abs + rel; "
+          f"bf16 Pallas one bf16 step at the larger |value| + 1e-6; bf16 "
+          f"chunked one step + 2^-8 sum p|v|/l, and against 64-key tiles "
+          f"one step + 2^-7 max p|v|/l; each bf16 function at most a "
+          f"quarter as far from its own plain version on average as from "
+          f"the other's); max |err| {worst:.3e}")
+    for r in rows:
+        print(f"  {r['case']:<28} {r['semantics']:<8} {r['route']:<6} "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), exp co-bound "
+              f"{r['exp_bound_ms']:.4f}, plain {r['plain_ms']:.3f}, SDPA "
+              f"{r['library_ms']:.4f}; {r['registers']} registers, "
+              f"{r['spill_stores']}/{r['spill_loads']} B spilled, "
+              f"{r['dynamic_smem']} B dynamic shared memory")
+        if "max_abs_err, 64-key plain" in r:
+            print(f"    chunked: max |err| against 64-key tiles "
+                  f"{r['max_abs_err, 64-key plain']:.3e}; largest excess "
+                  f"over one step against 512-key chunks "
+                  f"{r['excess over one step / wam, 512-key plain']:.3e} "
+                  f"of sum p|v|/l (bar 2^-8); mean |err| by function "
+                  + json.dumps(r["mean |err| by function"]))
     return worst, rows
 
 
-def lm_prefill_path(ops, model, params) -> dict:
+def zero_flash_counts(ops) -> None:
+    ops.flash_attention.launches = 0
+    for key in fak_routes():
+        fak_routes()[key] = 0
+
+
+def check_flash_counts(ops, n: int, route: str, what: str) -> None:
+    """Raise unless the flash wrapper launched exactly ``n`` times since
+    the counts were set to 0, all on ``route`` in the chunked function."""
+    routes = fak_routes()
+    want = {key: (n if key == f"{route}/chunked" else 0) for key in routes}
+    if ops.flash_attention.launches != n or routes != want:
+        raise AssertionError(f"{what} ran flash_attention "
+                             f"{ops.flash_attention.launches} times, routes "
+                             f"{routes}; expected {want}")
+
+
+def lm_prefill_path(ops, model, params, route: str,
+                    profile: bool = True) -> dict:
     """qwen2-0.5b ``prefill_fn`` at full width on 4 x 2048 tokens drawn
-    from SEED, the flash count set to 0 before and read after: 24 launches
-    (one per layer); logits (4, 2048, 152064) finite, pad columns -1e30.
-    Times the call (CUDA events) and profiles one."""
+    from SEED, the flash counts set to 0 before and read after: 24
+    launches (one per layer), all on ``route`` (``wgmma``, the tensor-core
+    kernel, for bf16 compute; ``simt`` for float32) in the chunked
+    function; logits (4, 2048, 152064) finite, pad columns -1e30.  Times
+    the call (CUDA events) and, if ``profile``, profiles one."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
                            generator=gen, device="cuda", dtype=torch.int32)
     batch = {"tokens": tokens}
-    ops.flash_attention.launches = 0
+    zero_flash_counts(ops)
     logits = model.prefill_fn(params, batch)
     torch.cuda.synchronize()
     launches = ops.flash_attention.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill ran flash_attention {launches} "
-                             f"times, expected {cfg.n_layers}")
+    routes = dict(fak_routes())
+    check_flash_counts(ops, cfg.n_layers, route, f"prefill ({route})")
     want_shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
     if logits.shape != want_shape or logits.dtype != torch.float32:
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -1623,18 +1906,31 @@ def lm_prefill_path(ops, model, params) -> dict:
     del logits
     ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=3,
                  warmup=1)
-    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1)
-    out = {"flash_attention launches": launches, "prefill ms": ms,
-           "prefill tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
-           "profile": prof}
+    out = {"compute": cfg.compute_dtype,
+           "flash_attention launches": launches,
+           "flash_attention routes": routes,
+           "prefill ms": ms,
+           "prefill tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3}
     pad = cfg.padded_vocab - cfg.vocab_size
-    print(f"prefill path: {LM_ARCH} at full width, {PREFILL_BATCH} x "
-          f"{PREFILL_LEN} tokens: {launches} flash_attention launches (one "
-          f"per layer), logits {want_shape} finite, {pad} pad columns "
-          f"-1e30; {ms:.3f} ms per call, "
+    print(f"prefill path ({cfg.compute_dtype} compute): {LM_ARCH} at full "
+          f"width, {PREFILL_BATCH} x {PREFILL_LEN} tokens: {launches} "
+          f"flash_attention launches (one per layer, all {route}/chunked: "
+          f"the {'tensor' if route == 'wgmma' else 'CUDA'}-core kernel in "
+          f"chunked_attention's function), logits {want_shape} finite, "
+          f"{pad} pad columns -1e30; {ms:.3f} ms per call, "
           f"{out['prefill tokens/s']:.0f} tokens/s")
-    print("prefill profile (profiler on): " + json.dumps(prof))
+    if profile:
+        out["profile"] = profile_device(
+            lambda: model.prefill_fn(params, batch), reps=1)
+        print("prefill profile (profiler on): "
+              + json.dumps(out["profile"]))
     return out
+
+
+def fak_routes() -> dict[str, int]:
+    """The flash kernels' launch counts by route and function."""
+    from repro_torch.kernels import flash_attention as fak
+    return fak.flash_attention_kernel.routes
 
 
 def decode_against_prefill(ops, model, params, BatchedServer,
@@ -1671,7 +1967,7 @@ def decode_against_prefill(ops, model, params, BatchedServer,
         return server, outs, rec, start.elapsed_time(end)
 
     serve()                                   # warm-up
-    ops.flash_attention.launches = 0
+    zero_flash_counts(ops)
     server, outs, rec, total_ms = serve()
     serve_launches = ops.flash_attention.launches   # decode only: 0
     steps, toks = server.stats.steps, server.stats.tokens_out
@@ -1680,13 +1976,12 @@ def decode_against_prefill(ops, model, params, BatchedServer,
                              f"expected 39 and 128")
     seqs = torch.tensor([p + o for p, o in zip(prompts, outs)],
                         dtype=torch.int32, device="cuda")
-    ops.flash_attention.launches = 0
+    zero_flash_counts(ops)
     full = model.prefill_fn(params, {"tokens": seqs})
     torch.cuda.synchronize()
     launches = ops.flash_attention.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"the check's prefill ran flash_attention "
-                             f"{launches} times, expected {cfg.n_layers}")
+    route = "wgmma" if compute == "bfloat16" else "simt"
+    check_flash_counts(ops, cfg.n_layers, route, "the check's prefill")
     dec = torch.stack(rec, dim=1)                        # (B, 39, V)
     pre = full[:, :steps]
     err = (dec - pre).abs()[..., :cfg.vocab_size]
@@ -1713,6 +2008,8 @@ def decode_against_prefill(ops, model, params, BatchedServer,
            "positions with a top-2 gap within the bar": int(
                (gap <= bar).sum()),
            "flash_attention launches in the check's prefill": launches,
+           "flash_attention route in the check's prefill":
+               f"{route}/chunked",
            "flash_attention launches in BatchedServer.generate":
                serve_launches,
            "steps": steps, "tokens_out": toks,
@@ -1741,15 +2038,15 @@ def lm_path(ops) -> dict:
     from repro_torch.runtime import BatchedServer
     model = build_model(get_config(LM_ARCH), "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-    out = {"prefill": lm_prefill_path(ops, model, params)}
-    out["decode bf16"] = decode_against_prefill(ops, model, params,
-                                                BatchedServer, "bfloat16")
     model32 = build_model(get_config(LM_ARCH, compute_dtype="float32"),
                           "cuda")
+    out = {"prefill": lm_prefill_path(ops, model, params, "wgmma"),
+           "prefill fp32": lm_prefill_path(ops, model32, params, "simt",
+                                           profile=False)}
+    out["decode bf16"] = decode_against_prefill(ops, model, params,
+                                                BatchedServer, "bfloat16")
     out["decode fp32"] = decode_against_prefill(ops, model32, params,
                                                 BatchedServer, "float32")
-    out["flash_attention launches"] = \
-        out["prefill"]["flash_attention launches"]
     out["flash_attention launches serving"] = sum(
         out[d]["flash_attention launches in BatchedServer.generate"]
         for d in ("decode bf16", "decode fp32"))
@@ -1849,7 +2146,8 @@ def main() -> int:
     km_flips, km_rows = kmeans_kernel_phase(kmk, gen)
     phase_s["kmeans kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fa_err, fa_rows = flash_kernel_phase(fak, ops, gen)
+    fa_err, fa_rows = flash_kernel_phase(fak, ops, gen, ptxas_report(
+        "\n".join(lib.log for lib in libs)))
     phase_s["flash kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -2063,25 +2361,42 @@ def main() -> int:
         "timed": "one launch at the clustering path's shape (n=2048, "
                  "d=20, k=10); max_abs_err counts assignments that "
                  "differ from plain (near-ties only)"})
-    fa = fa_rows[0]     # the prefill path's own shape
-    entries.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:70",
-        "launches": lm["flash_attention launches"],
-        "launches_serving_path": lm["flash_attention launches serving"],
-        "max_abs_err": fa_err,
-        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
-        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-        "library_ms": fa["library_ms"],
-        "timed": "one launch at qwen2-0.5b's prefill shape (B=4, S=2048, "
-                 "H=14, K=2, hd=64, causal, bf16); launches: one prefill_fn "
-                 "call (24, one per layer); launches_serving_path: "
-                 "BatchedServer.generate, bf16 and fp32 (decode only, "
-                 "plain attention); bound: q.k at the bf16 tensor-core "
-                 "rate (scale 1/8 keeps the scaled q exact in bf16), p.v "
-                 "at the fp32 rate; library: scaled_dot_product_attention "
-                 "in bf16"})
+    def fa_row(dt, sem):    # the prefill path's own shape
+        return next(r for r in fa_rows if r["case"].startswith(
+            "qwen2-0.5b prefill") and r["dtype"] == dt
+            and r["semantics"] == sem)
+    for name, dt, source, launches, what in (
+            ("flash_attention", "bfloat16", "flash_attention_tc.cu",
+             lm["prefill"]["flash_attention launches"],
+             "launches: the bf16 prefill path, one prefill_fn call (24, "
+             "one per layer, all wgmma/chunked)"),
+            ("flash_attention_simt", "float32", "flash_attention.cu",
+             lm["prefill fp32"]["flash_attention launches"],
+             "launches: the float32 prefill path, one prefill_fn call (24, "
+             "one per layer, all simt/chunked)")):
+        fa = fa_row(dt, "chunked")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:70",
+            "launches": launches,
+            "launches_serving_path": lm["flash_attention launches serving"],
+            "max_abs_err": max(max(r["max_abs_err"],
+                                   r.get("max_abs_err, 64-key plain", 0.0))
+                               for r in fa_rows if r["dtype"] == dt),
+            "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+            "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+            "library_ms": fa["library_ms"],
+            "pallas_ms": fa_row(dt, "pallas")["ms"],
+            "timed": f"one launch at qwen2-0.5b's prefill shape (B=4, "
+                     f"S=2048, H=14, K=2, hd=64, causal, {dt}) in "
+                     f"chunked_attention's function (pallas_ms: the Pallas "
+                     f"function); {what}; launches_serving_path: "
+                     f"BatchedServer.generate, bf16 and fp32 (decode only, "
+                     f"plain attention); bound: both products at the "
+                     f"{'bf16 tensor-core' if dt == 'bfloat16' else 'fp32'}"
+                     f" rate; library: scaled_dot_product_attention in "
+                     f"{dt}"})
     phase_s["timing and profiles"] = time.perf_counter() - t0
     print("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))

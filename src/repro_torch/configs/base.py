@@ -78,8 +78,8 @@ class ModelConfig:
     xbar_paired: bool = True                     # literal (G+,G-) vs (w,c)
     xbar_use_kernel: bool = False                # crossbar kernels' path
     remat: str = "full"                          # none | full | dots
-    # chunked_attention's tiling (not ported): kept so that a config equals
-    # the reference's field for field; nothing in the port reads them
+    # chunked_attention's tiling: where its plain version rounds p (the
+    # CUDA kernel's key tile is 64 whatever these say)
     q_chunk: int = 512
     kv_chunk: int = 512
     skip_masked_blocks: bool = False
@@ -110,7 +110,9 @@ class ModelConfig:
             n_kv_heads=self.n_kv_heads,
             head_dim=self.head_dim or self.d_model // max(self.n_heads, 1),
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-            window=window, mrope_sections=self.mrope_sections)
+            window=window, mrope_sections=self.mrope_sections,
+            q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+            skip_masked_blocks=self.skip_masked_blocks)
 
     def layer_kinds(self) -> list[str]:
         """Per-layer block kinds: optional dense prefix, then the pattern

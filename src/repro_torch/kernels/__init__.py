@@ -5,8 +5,10 @@ crossbar.py  the crossbar kernels' launchers (forward, error backprop,
              weight gradient, pulse update; stacked over cores) and their
              plain PyTorch versions
 kmeans.py    the k-means assignment kernel's launcher and its plain version
-flash_attention.py  the flash-attention kernel's launcher and its plain
-             version
+flash_attention.py  the flash-attention kernels' launchers (tensor cores
+             for bf16, CUDA cores for fp32) and their plain versions
+             (the reference's Pallas and ``chunked_attention``
+             functions)
 csrc/        CUDA C++ sources, one per kernel, built for sm_90a at first use
 _build.py    nvcc build into build/kernels/, keyed on the sources' hash,
              loaded with ctypes

@@ -1,24 +1,41 @@
-"""The flash-attention kernel: its CUDA launcher and its plain version.
+"""The flash-attention kernels: their CUDA launchers and plain versions.
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel behind
 the reference's ``ops.flash_attention``): causal or full softmax attention
-with an online softmax, fp32 inside, output in q's dtype.  The layout is
-the reference wrapper's public one: q (B, Sq, H, hd), k and v (B, Skv, K,
-hd) with H % K == 0; query head h reads kv head h // (H // K) (the order
-of ``jnp.repeat``).  q is widened to fp32 and scaled before the product,
-as the Pallas body does.  The causal mask counts query and key positions
-from 0 on both sides (the Pallas kernel's mask; right for prefill, where
-Sq == Skv).  hd is at most 128.
+with an online softmax, output in q's dtype.  The layout is the reference
+wrapper's public one: q (B, Sq, H, hd), k and v (B, Skv, K, hd) with
+H % K == 0; query head h reads kv head h // (H // K) (the order of
+``jnp.repeat``).  The causal mask counts query and key positions from 0 on
+both sides (right for prefill, where Sq == Skv).  hd is at most 128.
 
-* ``flash_attention_kernel`` launches the hand-written CUDA kernel
-  (``csrc/flash_attention.cu``, sm_90a) on CUDA tensors, read through
-  their strides, and raises on anything else;
-* ``flash_attention_plain`` is the same function in plain PyTorch (a naive
-  softmax over the whole score matrix): the CPU path of
-  ``ops.flash_attention`` and the version the kernel is held against on
-  the card.
+The reference has two functions of this shape, and ``semantics`` selects
+one (``SEMANTICS``):
 
-The library is built and loaded inside the first launch, never at import.
+* ``"pallas"``, its Pallas kernel's body: q widened to fp32 and scaled
+  before the product, s, p and the accumulator all fp32;
+* ``"chunked"``, its layer's ``chunked_attention`` (``_online_update``):
+  q . k taken from the operand values with fp32 accumulation, ``scale``
+  multiplying the product, p rounded to v's dtype before p . v (fp32
+  accumulation).  This is the LM prefill's function.  In fp32 the two
+  differ only by where the scale's rounding falls.
+
+Two CUDA sources (sm_90a) compute them:
+
+* ``csrc/flash_attention_tc.cu`` for bf16 operands, on the tensor cores
+  (``wgmma``), hd in ``TC_HEAD_DIMS``; both functions (a template
+  parameter);
+* ``csrc/flash_attention.cu`` for fp32 operands, on the CUDA cores (TF32
+  stays off), any hd up to 128; both functions.
+
+``flash_attention_kernel`` launches the one that fits the operands' dtype
+on CUDA tensors and raises on anything else.  ``flash_attention_plain``
+(the Pallas function, a naive softmax over the whole score matrix) and
+``chunked_attention_plain`` (the chunked function, walking the reference's
+``q_chunk``/``kv_chunk`` grid) are the CPU paths and the versions the
+kernels are held against on the card.
+
+The libraries are built and loaded inside the first launch, never at
+import.
 """
 from __future__ import annotations
 
@@ -27,9 +44,12 @@ import functools
 
 import torch
 
-MAX_HD = 128       # head width the kernel's accumulators hold
+MAX_HD = 128       # head width the kernels' accumulators hold
+TC_HEAD_DIMS = (16, 32, 64, 128)   # head widths of the tensor-core kernel
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
+SEMANTICS = ("pallas", "chunked")
+ROUTES = ("wgmma", "simt")
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -52,11 +72,25 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"got hd={hd}")
 
 
+def check_semantics(semantics: str) -> None:
+    """Raise unless ``semantics`` names one of the reference's functions."""
+    if semantics not in SEMANTICS:
+        raise ValueError(f"semantics must be one of {SEMANTICS}, got "
+                         f"{semantics!r}")
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel that takes operands of ``dtype``: ``"wgmma"`` (bf16, the
+    tensor-core source) or ``"simt"`` (fp32, the CUDA-core source)."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, scale: float,
                           causal: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: softmax(scale q . k, masked) . v in fp32,
-    q scaled before the product; (B, Sq, H, hd) in q's dtype."""
+    """Plain PyTorch version of the Pallas function: softmax(scale q . k,
+    masked) . v in fp32, q scaled before the product; (B, Sq, H, hd) in
+    q's dtype."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     f32 = torch.float32
@@ -71,46 +105,135 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, scale: float,
+                            causal: bool = True, q_chunk: int = 512,
+                            kv_chunk: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of the reference's ``chunked_attention``
+    (``_online_update`` step for step): per (q chunk, kv chunk) in
+    ascending order, s = (q . k in fp32 from the operand values) * scale,
+    -1e30 where masked, running max m and sum l in fp32, p = exp(s - m)
+    rounded to v's dtype before p . v (fp32 accumulation), and o / max(l,
+    1e-30) cast to q's dtype; (B, Sq, H, hd).
+
+    bf16 operands are multiplied as fp32 copies, which is exact (CPU
+    ``einsum`` on bf16 would round its result to bf16).  A ragged last
+    chunk is shorter (the reference asserts that the chunks divide S).
+    kv chunks past the diagonal are skipped when causal: there p = 0 and
+    corr = 1 exactly, so skipping leaves the result bit for bit as is."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    f32, dev = torch.float32, q.device
+    cq, ck = min(q_chunk, Sq), min(kv_chunk, Skv)
+    qf = q.to(f32).reshape(B, Sq, K, H // K, hd)
+    outs = []
+    for i0 in range(0, Sq, cq):
+        qb = qf[:, i0:i0 + cq]
+        n = qb.shape[1]
+        m = torch.full((B, K, H // K, n), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((B, K, H // K, n), dtype=f32, device=dev)
+        o = torch.zeros((B, K, H // K, n, hd), dtype=f32, device=dev)
+        for j0 in range(0, Skv, ck):
+            if causal and j0 > i0 + n - 1:
+                break
+            kb, vb = k[:, j0:j0 + ck], v[:, j0:j0 + ck]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.to(f32)) * scale
+            if causal:
+                qi = i0 + torch.arange(n, device=dev)[:, None]
+                ki = j0 + torch.arange(kb.shape[1], device=dev)[None, :]
+                s = s.masked_fill(ki > qi, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).to(f32), vb.to(f32))
+            m = m_new
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3)                        # (B, K, G, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    """The ``flash_attention_launch`` C entry point, typed."""
+def _launch_fn(name: str):
+    """The ``<name>_launch`` C entry point of ``csrc/<name>.cu``, typed."""
     from repro_torch.kernels import _build
-    fn = _build.load("flash_attention").cdll.flash_attention_launch
+    fn = getattr(_build.load(name).cdll, f"{name}_launch")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-                   ctypes.c_float, i32, ctypes.POINTER(ctypes.c_longlong),
-                   ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                   ctypes.c_float, i32, i32,
+                   ctypes.POINTER(ctypes.c_longlong), ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the tensor-core kernel can copy ``t``'s rows as they lie
+    (16-byte ``cp.async`` copies): unit inner stride, 16-byte aligned
+    start and row strides."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:3]))
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, scale: float,
-                           causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B, Sq, H, hd); k, v (B, Skv, K, hd), all
-    fp32 or all bf16, any strides, on one CUDA device -> (B, Sq, H, hd)
-    contiguous in q's dtype, on the current stream; raises if the launch
-    reports an error."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must lie on q's CUDA device, got "
-                             f"{t.device} (q on {q.device})")
+                           causal: bool = True,
+                           semantics: str = "pallas") -> torch.Tensor:
+    """Launch the CUDA kernel of ``semantics``: q (B, Sq, H, hd); k, v (B,
+    Skv, K, hd), all fp32 or all bf16, on one CUDA device -> (B, Sq, H,
+    hd) contiguous in q's dtype, on the current stream; raises if the
+    launch reports an error.
+
+    fp32 operands go to the CUDA-core kernel, read through any strides.
+    bf16 operands go to the tensor-core kernel, which takes hd in
+    ``TC_HEAD_DIMS`` (raises otherwise) and copies 16-byte rows
+    asynchronously: an operand whose inner stride is not 1, or whose start
+    or other strides are not 16-byte aligned, is first copied contiguous
+    here, and each such copy is counted on
+    ``flash_attention_kernel.operand_copies``.  Each launch is counted on
+    ``flash_attention_kernel.routes["<route>/<semantics>"]`` (``route``:
+    the source it went to)."""
+    check_semantics(semantics)
+    for t in (q, k, v):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise TypeError(f"q, k and v must all be float32 or all "
                             f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     check_shapes(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    tc = route(q.dtype) == "wgmma"
+    if tc and hd not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core flash kernel takes head widths "
+                         f"{TC_HEAD_DIMS}, got hd={hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device, got "
+                             f"{t.device} (q on {q.device})")
     if B > 65535 or H > 65535 or max(Sq, Skv) >= 2 ** 31 - 64:
         raise ValueError(f"grid limits: B and H <= 65535, sequences < 2^31, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
+    if tc:
+        ready = []
+        for t in (q, k, v):
+            if not _rows_aligned(t):
+                t = t.clone(memory_format=torch.contiguous_format)
+                flash_attention_kernel.operand_copies += 1
+            ready.append(t)
+        q, k, v = ready
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
+    fn = _launch_fn("flash_attention_tc" if tc else "flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), DTYPES[q.dtype], B, H, K, Sq, Skv,
-                          hd, scale, int(causal), strides, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, H, K, Sq, Skv, hd, scale, int(causal),
+                int(semantics == "chunked"), strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    flash_attention_kernel.routes[f"{route(q.dtype)}/{semantics}"] += 1
     return out
+
+
+flash_attention_kernel.operand_copies = 0
+flash_attention_kernel.routes = {f"{r}/{s}": 0 for r in ROUTES
+                                 for s in SEMANTICS}

@@ -23,8 +23,10 @@ step's per-stage body (``repro_torch.sim.compiled``).
 ``kmeans_assign`` is the clustering core's assignment step (the k-means
 kernel, ``kernels/kmeans.py``).
 
-``flash_attention`` is the fused attention of the LM's prefill (the flash
-kernel, ``kernels/flash_attention.py``).
+``flash_attention`` is fused attention: by default the reference's Pallas
+function; with ``semantics="chunked"`` its ``chunked_attention``, the LM
+prefill's (the flash kernels, ``kernels/flash_attention.py``: tensor
+cores for bf16, CUDA cores for fp32).
 
 Not ported yet (ROADMAP): the TPU block autotuner, the tuned-block table
 and the conductance pad cache (reference ``ops.py:60-255``), which tile for
@@ -40,18 +42,15 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import kmeans as kmk
 
 
-def _dispatch(wrapper, name: str, *tensors, module=xbk, strided=False,
-              **kwargs):
+def _dispatch(wrapper, name: str, *tensors, module=xbk, **kwargs):
     """Run ``name`` of ``module`` (the crossbar kernels unless named): its
     plain version when every tensor (``dy_scale`` and a tensor ``lr``
-    included) lies on the CPU, else its CUDA kernel, counted on
-    ``wrapper.launches``.  The kernel gets contiguous operands unless it
-    reads them through their strides (``strided``)."""
+    included) lies on the CPU, else its CUDA kernel on contiguous
+    operands, counted on ``wrapper.launches``."""
     extra = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
     if all(t.device.type == "cpu" for t in list(tensors) + extra):
         return getattr(module, f"{name}_plain")(*tensors, **kwargs)
-    if not strided:
-        tensors = tuple(t.contiguous() for t in tensors)
+    tensors = tuple(t.contiguous() for t in tensors)
     out = getattr(module, f"{name}_kernel")(*tensors, **kwargs)
     wrapper.launches += 1
     return out
@@ -341,15 +340,34 @@ kmeans_assign.launches = 0
 # ---------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True) -> torch.Tensor:
+                    scale: float, causal: bool = True,
+                    semantics: str = "pallas", q_chunk: int = 512,
+                    kv_chunk: int = 512) -> torch.Tensor:
     """Fused attention.  q (B, Sq, H, hd); k, v (B, Skv, K, hd), H % K == 0
-    -> (B, Sq, H, hd) in q's dtype.  GQA reads kv head h // (H // K) in the
-    kernel (nothing is broadcast), and the kernel reads q, k and v through
-    their strides (nothing is copied).  Any Sq and Skv: the kernel masks
-    the ragged edge, nothing is padded."""
+    -> (B, Sq, H, hd) in q's dtype.  ``semantics`` selects which of the
+    reference's two functions is computed: ``"pallas"`` (its Pallas
+    kernel, the default) or ``"chunked"`` (its layer's
+    ``chunked_attention``, the LM prefill's; see
+    ``kernels/flash_attention.py``).  On CPU tensors the chunked function
+    walks the ``q_chunk`` x ``kv_chunk`` grid; the kernel's key tile is 64
+    whatever the chunks.  GQA reads kv head h // (H // K) in the kernel
+    (nothing is broadcast); the fp32 kernel reads q, k and v through
+    their strides, the bf16 one copies a view only where its rows are not
+    16-byte aligned.  Any Sq and Skv: the kernels mask the ragged edge,
+    nothing is padded.  Each launch is counted on ``launches`` (and by the
+    kernel on ``flash_attention_kernel.routes``)."""
+    fak.check_semantics(semantics)
     fak.check_shapes(q, k, v)
-    return _dispatch(flash_attention, "flash_attention", q, k, v,
-                     module=fak, strided=True, scale=scale, causal=causal)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        if semantics == "chunked":
+            return fak.chunked_attention_plain(
+                q, k, v, scale=scale, causal=causal, q_chunk=q_chunk,
+                kv_chunk=kv_chunk)
+        return fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
+    out = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal,
+                                     semantics=semantics)
+    flash_attention.launches += 1
+    return out
 
 
 flash_attention.launches = 0

@@ -1,21 +1,24 @@
-"""Attention: prefill on the flash kernel, cached decode (port of the
+"""Attention: chunked (flash-style) prefill, cached decode (port of the
 self-attention part of ``repro/layers/attention.py``).
 
 Prefill (``cache is None``) is causal self-attention over the whole
-sequence.  The reference computes it with ``chunked_attention`` in jnp;
-for causal attention with no window and ``Sq == Skv`` that is the same
-function as its Pallas ``flash_attention_kernel``, so the port routes it
-to ``kernels.ops.flash_attention`` with the layer's ``scale``: on the card
-the hand-written kernel (``kernels/csrc/flash_attention.cu``), on the CPU
-its plain version.  Decode attends one query over a cache buffer.
+sequence through ``chunked_attention``, the reference's own prefill
+function: q . k from the operand values with fp32 accumulation, the scale
+after the product, p rounded to v's dtype before p . v.  It goes through
+``kernels.ops.flash_attention(..., semantics="chunked")``: on CPU tensors
+that walks the reference's ``q_chunk``/``kv_chunk`` grid in plain PyTorch
+(``kernels/flash_attention.chunked_attention_plain``); on CUDA tensors it
+launches the flash kernel (``kernels/csrc/flash_attention_tc.cu`` on the
+tensor cores for bf16, ``flash_attention.cu`` for fp32), whose 64-key
+tiles round p against another running max than 512-key chunks would.
+Decode attends one query over a cache buffer.
 
-bf16 operands enter the products widened to fp32 (a bf16 x bf16 product
-is exact in fp32), where the reference asks for fp32 accumulation; only
-the order of the sums differs.
+bf16 operands enter the products as exact fp32 copies on the CPU, where
+the reference asks for fp32 accumulation; only the order of the sums
+differs.
 
 Not ported (ROADMAP Queue 1 item 10): sliding windows, cross-attention,
-bidirectional prefill, M-RoPE and ``chunked_attention`` itself.  They
-raise ``NotImplementedError``.
+bidirectional prefill and M-RoPE.  They raise ``NotImplementedError``.
 
 KV caches are updated in place (the port's form of the reference's
 donated cache); nothing inside a step is read back to the host.
@@ -46,6 +49,9 @@ class AttnConfig:
     window: int | None = None           # sliding-window size (None = full)
     rope_theta: float = 10000.0
     mrope_sections: tuple[int, int, int] | None = None
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    skip_masked_blocks: bool = False    # schedule only: same result
     softmax_scale: float | None = None
 
     @property
@@ -75,6 +81,36 @@ def _rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"M-RoPE is {NOT_PORTED}")
     return apply_rope(x, positions, theta=cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (prefill)
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      scale: float, causal: bool, window: int | None,
+                      q_chunk: int, kv_chunk: int,
+                      skip_masked_blocks: bool = False) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); H % K == 0 -> (B, Sq, H,
+    hd) in q's dtype.  Query token i is at position i (train/prefill).
+
+    The reference's function: per (q chunk, kv chunk), s = (q . k in fp32)
+    * scale, masked to -1e30, online max and sum in fp32, p rounded to v's
+    dtype before p . v, through ``ops.flash_attention(...,
+    semantics="chunked")``: CPU tensors walk the ``q_chunk`` x
+    ``kv_chunk`` grid in plain PyTorch; CUDA tensors launch the flash
+    kernel, whose key tile is 64 whatever the chunks.  ``skip_masked_blocks`` changes only the
+    reference's schedule (fully masked blocks give p = 0 exactly), so it is
+    accepted and has no effect.  A window, and non-causal attention with
+    Sq != Skv (cross-attention), raise ``NotImplementedError``."""
+    del skip_masked_blocks
+    if window is not None:
+        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
+    if not causal and q.shape[1] != k.shape[1]:
+        raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
+    return kernel_ops.flash_attention(q, k, v, scale=scale, causal=causal,
+                                      semantics="chunked", q_chunk=q_chunk,
+                                      kv_chunk=kv_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +247,10 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: AttnConfig, *,
         y = decode_attention(q, kc, vc, valid[None, :].expand(B, -1),
                              scale=cfg.scale)
     else:
-        y = kernel_ops.flash_attention(q, k, v, causal=True, scale=cfg.scale)
+        y = chunked_attention(q, k, v, scale=cfg.scale, causal=True,
+                              window=None, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk,
+                              skip_masked_blocks=cfg.skip_masked_blocks)
 
     y = y.reshape(B, y.shape[1], H * hd)
     out = dense_apply(params["wo"], y, compute_dtype=compute_dtype, xbar=xbar)

@@ -8,10 +8,11 @@ Tolerances, each with its reason:
 - logits in float32 compute: 1e-4 absolute plus relative (fp32 sums in
   different orders through two layers; the bf16 KV cache of a decode step
   rounds identical values on both sides).
-- logits in bf16 compute: 2e-2 absolute plus relative.  bf16 against
-  float32 compute moves these logits by up to 1.1e-2 in the reference
-  itself; the two frameworks round bf16 products and activations at the
-  same places, but sum in different orders.
+- logits in bf16 compute: 1e-2 absolute plus relative.  The two
+  frameworks round bf16 products and activations at the same places
+  (prefill attention included: the port's ``chunked_attention`` rounds p
+  to bf16 as the reference's does) but sum in different orders; measured
+  (CPU): 7.5e-3 for prefill, 5.6e-3 for decode (1.34x and 1.8x margin).
 - greedy tokens: equal, except at a position whose top-2 logit gap is
   within the logit tolerance above; the slot's later tokens are then
   excused too (they follow a different feed).  Each test counts what it
@@ -43,7 +44,7 @@ from repro_torch.runtime import serve_loop as tserve  # noqa: E402
 REPO = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "qwen2-0.5b"
 DENSE = ["qwen2-0.5b", "yi-6b", "mistral-nemo-12b", "qwen1.5-110b"]
-LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 PROMPTS = [[1 + (i * 7 + j) % 511 for j in range(8)] for i in range(4)]
 
 
@@ -89,7 +90,8 @@ def test_configs_and_param_count_equal_the_reference(arch):
         assert tc.padded_vocab == jc.padded_vocab
         assert tc.param_count() == jc.param_count()
         assert tc.attn() == tc.attn(None)
-        # the port's AttnConfig leaves out chunked_attention's tiling
+        # every field of the port's AttnConfig (chunked_attention's
+        # tiling included) equals the reference's
         ja = dataclasses.asdict(jc.attn())
         assert dataclasses.asdict(tc.attn()) == {
             f.name: ja[f.name] for f in dataclasses.fields(tc.attn())}

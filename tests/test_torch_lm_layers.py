@@ -356,7 +356,7 @@ def test_attention_apply_prefill(dtype):
     want, _ = J["attn"](jp, jx, cfg=jattn.AttnConfig(**JACFG),
                         positions=jnp.asarray(pos), compute_dtype=jd)
     got, cache = tattn.attention_apply(
-        tp, tx, tattn.AttnConfig(**ACFG), positions=torch.from_numpy(pos),
+        tp, tx, tattn.AttnConfig(**JACFG), positions=torch.from_numpy(pos),
         compute_dtype=td)
     assert cache is None and got.dtype == td
     assert_close(got, want, TOL if dtype == "float32" else CHAIN_TOL)
