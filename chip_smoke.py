@@ -12,8 +12,10 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 2. builds the eight kernel sources from ``src/repro_torch/kernels/csrc``
    (five crossbar kernels, the k-means assignment, flash attention on the
    tensor cores for bf16 and on the CUDA cores for fp32; one nvcc per
-   source, all started together) and prints the build time and ptxas'
-   register/spill report;
+   source, all started together; dw and pulse share the header
+   ``outer_product.cuh``) and prints the build time and ptxas'
+   register/spill report, and per dw and pulse instance its registers,
+   spills and shared memory (a spill fails the run);
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
@@ -27,9 +29,22 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    copied in place — held against its plain version and BIT FOR BIT
    against the four-call sequence (fwd without activation, bwd, pulse on
    the dequantized error) — and time each kernel, its plain version and
-   ``torch.bmm`` for the same contraction at M = 4096 beside the bound;
-   and the k-means assignment kernel at the clustering path's shape (n =
-   2048, d = 20, k = 10), n = 60000, k = 26, the hardware core's 32 x 32,
+   ``torch.bmm`` for the same contraction at M = 4096 beside the bound
+   (dw and pulse rows also by device time, a CUDA graph of 20 calls
+   replayed, for the kernel and for ``torch.bmm``); the dw and pulse
+   kernels' bit pins, which tie them and the fused kernel to one summation
+   order: (a) dw on int8 codes with a scale equals dw on ``codes.float() *
+   scale``, (b) pulse_update equals the plain pulse epilogue applied to the
+   dw kernel's product, both bit for bit at every training stage stack (M =
+   1, 64, 4096), mnist's four layers and the ragged shapes, and every tile
+   of ``OUTER_PRODUCT_TILES`` equal to the picked one (fp32, int8 and
+   int32 codes, pulse) on ragged shapes and operands whose addresses are
+   not 16-byte aligned; a sweep of every tile's device time at the main
+   paths' dw and pulse launches beside the tile the wrapper picks; the
+   ptxas registers, spills (none allowed) and shared memory of every dw and
+   pulse instance; and the k-means assignment kernel at the clustering
+   path's shape (n = 2048, d = 20, k = 10), n = 60000, k = 26, the
+   hardware core's 32 x 32,
    the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
    duplicated centers (exact ties go to the lowest index), timed beside its
    plain version, ``torch.cdist(p=1).argmin`` and the bound; and the flash
@@ -223,6 +238,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: one CUDA graph of ``calls`` calls,
+    replayed ``reps`` times between two events after a warm-up, so the
+    host's cost of a call (checks, allocation, launch) is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def bound(T, M, K, N, kernel: str = "crossbar_fwd",
@@ -488,30 +525,224 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
             "plain_ms": lambda: xbk.crossbar_bwd_plain(ds, gp, gm),
             "library_ms": lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)),
         }),
-        time_row("crossbar_dw", T, M, K, N, {
+        with_device_ms(time_row("crossbar_dw", T, M, K, N, {
             "ms": lambda: xbk.crossbar_dw_kernel(xs, ds),
             "plain_ms": lambda: xbk.crossbar_dw_plain(xs, ds),
             "library_ms": lambda: torch.bmm(xt, ds),
-        }),
-        time_row("pulse_update", T, M, K, N, {
+        }), lambda: xbk.crossbar_dw_kernel(xs, ds),
+            lambda: torch.bmm(xt, ds), xbk.outer_product_tile(T, M, K, N, 4)),
+        with_device_ms(time_row("pulse_update", T, M, K, N, {
             "ms": lambda: xbk.pulse_update_kernel(gp, gm, xs, ds, **rule),
             "plain_ms": lambda: xbk.pulse_update_plain(gp, gm, xs, ds,
                                                        **rule),
             "library_ms": lambda: torch.bmm(xt, ds),
         }, library="bmm without the pulse epilogue"),
+            lambda: xbk.pulse_update_kernel(gp, gm, xs, ds, **rule),
+            lambda: torch.bmm(xt, ds), xbk.outer_product_tile(T, M, K, N, 4)),
     ]
+
+
+def with_device_ms(row: dict, kernel, library, tile: int) -> dict:
+    """Add the kernel's and the library call's device times (``graph_ms``)
+    and the tile the wrapper picked to a row."""
+    row.update(ms_device=graph_ms(kernel), library_ms_device=graph_ms(library),
+               tile=tile)
+    return row
 
 
 def time_dw_codes(xbk, xs, codes, scale) -> dict:
     T, M, K = xs.shape
     N = codes.shape[2]
     dys = codes.float() * scale
-    return time_row("crossbar_dw", T, M, K, N, {
+    return with_device_ms(time_row("crossbar_dw", T, M, K, N, {
         "ms": lambda: xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale),
         "plain_ms": lambda: xbk.crossbar_dw_plain(xs, codes,
                                                   dy_scale=scale),
         "library_ms": lambda: torch.bmm(xs.transpose(1, 2), dys),
-    }, dy_bytes=1, codes="int8")
+    }, dy_bytes=1, codes="int8"),
+        lambda: xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale),
+        lambda: torch.bmm(xs.transpose(1, 2), dys),
+        xbk.outer_product_tile(T, M, K, N, 1))
+
+
+def outer_product_cases() -> list[tuple[int, int, int, int]]:
+    """(T, M, K, N) of the bit pins: every training stage stack at M = 1, 64
+    and 4096, crossbar_apply's mnist layers at M = 4096, and the train
+    phase's ragged shapes (its chip-axis case folded: 2 x 3 cores)."""
+    stacks = sorted({s for v in TRAIN_SHAPES.values() for s in v})
+    cases = [(T, M, K, N) for T, K, N in stacks for M in (1, 64, 4096)]
+    cases += [(1, 4096, K, N) for K, N in MNIST_LAYERS]
+    return cases + [(3, 37, 300, 26), (6, 7, 45, 13)]
+
+
+def offset_copy(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``elements`` elements into its
+    buffer, so that its address is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def differing(a: torch.Tensor, b: torch.Tensor) -> str:
+    return f"{int((a != b).sum())} of {a.numel()} values differ"
+
+
+def outer_product_phase(xbk, gen) -> dict:
+    """Bit pins that tie the dw and pulse kernels (and, through the fused
+    phase, crossbar_train.cu) to one summation order, at every
+    ``outer_product_cases`` shape:
+    (a) dw on int8 codes with a scale equals dw on ``codes.float() *
+        scale``;
+    (b) pulse_update equals the plain pulse epilogue
+        (``pulse_epilogue_plain``: round(fp32(2 lr) dw / fp32(u)), clamp,
+        0.5 (c u), g± ± half, clamp) applied to the dw kernel's product.
+    Then every tile of ``OUTER_PRODUCT_TILES`` gives the picked tile's bits
+    for dw (fp32, int8 and int32 codes) and pulse, on ragged shapes, on
+    operands whose addresses are not 16-byte aligned, and at the largest
+    main-path shape; the picked tile is held against the plain versions.
+    Returns the pin counts.  Launches here are not counted."""
+    rule = dict(max_dw=MAX_DW, levels=LEVELS, w_max=W_MAX)
+    scale = torch.tensor(0.05 / 127, device="cuda")
+    pins = {"a": 0, "b": 0, "tiles": 0}
+    for T, M, K, N in outer_product_cases():
+        xs = uniform((T, M, K), -0.5, 0.5, gen)
+        codes = torch.randint(-127, 128, (T, M, N), generator=gen,
+                              dtype=torch.int8, device="cuda")
+        got = xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale)
+        want = xbk.crossbar_dw_kernel(xs, codes.float() * scale)
+        if not torch.equal(got, want):
+            raise AssertionError(f"pin (a) at {(T, M, K, N)}: dw on codes "
+                                 f"vs dequantized, {differing(got, want)}")
+        d = uniform((T, M, N), -0.05, 0.05, gen)
+        gp = uniform((T, K, N), 0.3, 0.7, gen)
+        gm = uniform((T, K, N), 0.3, 0.7, gen)
+        lr = 0.25 / M ** 0.5
+        got = xbk.pulse_update_kernel(gp, gm, xs, d, lr=lr, **rule)
+        want = xbk.pulse_epilogue_plain(
+            gp, gm, xbk.crossbar_dw_kernel(xs, d), lr=lr, **rule)
+        for name, a, b in zip(("g+", "g-"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pin (b) at {(T, M, K, N)}: pulse vs "
+                                     f"epilogue(dw) {name}, "
+                                     f"{differing(a, b)}")
+        pins["a"] += 1
+        pins["b"] += 1
+    for T, M, K, N, off in ((3, 37, 300, 26, 1), (2, 70, 17, 9, 3),
+                            (6, 100, 400, 100, 2), (1, 4096, 784, 300, 0)):
+        xs = offset_copy(uniform((T, M, K), -0.5, 0.5, gen), off)
+        d = offset_copy(uniform((T, M, N), -0.05, 0.05, gen), off)
+        c8 = offset_copy(torch.randint(-127, 128, (T, M, N), generator=gen,
+                                       dtype=torch.int8, device="cuda"),
+                         5 * off)
+        c32 = offset_copy(c8.to(torch.int32), off)
+        gp = uniform((T, K, N), 0.3, 0.7, gen)
+        gm = uniform((T, K, N), 0.3, 0.7, gen)
+        lr = 0.25 / M ** 0.5
+        runs = {
+            "dw fp32": lambda t: (xbk.crossbar_dw_kernel(xs, d, tile=t),),
+            "dw int8": lambda t: (xbk.crossbar_dw_kernel(
+                xs, c8, dy_scale=scale, tile=t),),
+            "dw int32": lambda t: (xbk.crossbar_dw_kernel(
+                xs, c32, dy_scale=scale, tile=t),),
+            "pulse": lambda t: xbk.pulse_update_kernel(
+                gp, gm, xs, d, lr=lr, tile=t, **rule),
+        }
+        ref = {k: f(None) for k, f in runs.items()}
+        what = f"{(T, M, K, N)} offset {off}"
+        close(ref["dw fp32"][0], xbk.crossbar_dw_plain(xs, d),
+              f"dw {what}")
+        close(ref["dw int8"][0], xbk.crossbar_dw_plain(xs, c8,
+                                                        dy_scale=scale),
+              f"dw int8 {what}")
+        if not torch.equal(ref["dw int8"][0], ref["dw int32"][0]):
+            raise AssertionError(f"dw int8 vs int32 codes {what}")
+        counts = xbk.pulse_counts_plain(xs, d, lr=lr, max_dw=MAX_DW,
+                                        levels=LEVELS)
+        check_pulse_counts(gp, gm, ref["pulse"],
+                           xbk.pulse_update_plain(gp, gm, xs, d, lr=lr,
+                                                  **rule),
+                           counts, f"pulse {what}")
+        for t in range(len(xbk.OUTER_PRODUCT_TILES)):
+            for name, run in runs.items():
+                for a, b in zip(run(t), ref[name]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name} {what}: tile {t} vs "
+                                             f"the picked tile, "
+                                             f"{differing(a, b)}")
+                pins["tiles"] += 1
+    torch.cuda.synchronize()
+    print(f"outer-product pins: (a) dw(codes, scale) == dw(codes * scale) "
+          f"and (b) pulse == epilogue(dw), bit for bit, at {pins['a']} "
+          f"shapes; every tile == the picked tile at {pins['tiles']} "
+          f"(kernel, shape, tile) triples")
+    return pins
+
+
+def tile_sweep(xbk, gen) -> list[dict]:
+    """Device time (``graph_ms``) of every tile at the main paths' dw and
+    pulse launches: crossbar_apply's 4 mnist layers on int8 codes at M =
+    4096, one eager mnist step's stacks at M = 4096 and isolet's at M =
+    256; beside the tile the wrapper picks."""
+    rule = dict(lr=LR, max_dw=MAX_DW, levels=LEVELS, w_max=W_MAX)
+    scale = torch.tensor(0.05 / 127, device="cuda")
+    shapes = [("crossbar_dw", 1, 4096, K, N) for K, N in MNIST_LAYERS]
+    shapes += [("pulse_update", T, M, K, N) for app, M in
+               (("mnist_class", 4096), ("isolet_class", 256))
+               for T, K, N in dict.fromkeys(TRAIN_SHAPES[app])]
+    rows = []
+    for kernel, T, M, K, N in shapes:
+        xs = uniform((T, M, K), -0.5, 0.5, gen)
+        if kernel == "crossbar_dw":
+            codes = torch.randint(-127, 128, (T, M, N), generator=gen,
+                                  dtype=torch.int8, device="cuda")
+            def run(t):
+                return xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale,
+                                              tile=t)
+        else:
+            d = uniform((T, M, N), -0.05, 0.05, gen)
+            gp = uniform((T, K, N), 0.3, 0.7, gen)
+            gm = uniform((T, K, N), 0.3, 0.7, gen)
+            def run(t):
+                return xbk.pulse_update_kernel(gp, gm, xs, d, tile=t, **rule)
+        ms = [graph_ms(lambda: run(t)) for t in
+              range(len(xbk.OUTER_PRODUCT_TILES))]
+        picked = xbk.outer_product_tile(T, M, K, N, 1 if kernel ==
+                                        "crossbar_dw" else 4)
+        rows.append({"kernel": kernel, "T": T, "M": M, "K": K, "N": N,
+                     "picked": picked, "best": ms.index(min(ms)),
+                     "ms_by_tile": [round(v, 5) for v in ms]})
+    return rows
+
+
+def outer_product_ptxas(report: dict[str, dict]) -> dict[str, list]:
+    """Registers, spill bytes (stores + loads) and dynamic shared memory of
+    every dw and pulse instance, by kernel, tile and dy type; raises on a
+    spill."""
+    import re
+    from repro_torch.kernels import crossbar as xbk
+    out = {}
+    pat = re.compile(r"(crossbar_dw|pulse_update)IN13outer_product4Tile"
+                     + r"ELi".join([r"ILi(\d+)"] + [r"(\d+)"] * 5)
+                     + r"EEE?([afi]?)")
+    for key, v in report.items():
+        m = pat.search(key)
+        if not m:
+            continue
+        tk, tn, wk, wn, bm, stages = map(int, m.groups()[1:7])
+        td = {"": "f32", "f": "f32", "a": "int8", "i": "int32"}[m.group(8)]
+        bk, bn = 8 * tk * wk, 4 * tn * wn
+        raw = bm * ((bn + 15) // 16 * 16 + 16) if td == "int8" else 0
+        tile = xbk.OUTER_PRODUCT_TILES.index((tk, tn, wk, wn, bm, stages))
+        spills = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+        if spills:
+            raise AssertionError(f"{key}: {spills} bytes of register spills")
+        stage = -(-(4 * bm * (bk + bn) + raw) // 128) * 128
+        out[f"{m.group(1)}[{tile}] {td}"] = [
+            v.get("registers"), spills, stages * (stage + 16)]
+    if len(out) != 4 * len(xbk.OUTER_PRODUCT_TILES):
+        raise AssertionError(f"ptxas report: {len(out)} dw/pulse instances")
+    return dict(sorted(out.items()))
 
 
 def fused_kernel_cases() -> list[dict]:
@@ -2135,19 +2366,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
 
+    report = ptxas_report("\n".join(lib.log for lib in libs))
+    print("ptxas, dw and pulse instances [registers, spill bytes, dynamic "
+          "shared memory]: " + json.dumps(outer_product_ptxas(report)))
+
     phase_s = {"build": time.perf_counter() - t0}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     max_err, rows = kernel_phase(xbk, ops, gen)
     train_err, train_rows = train_kernel_phase(xbk, ops, gen)
+    pins = outer_product_phase(xbk, gen)
+    sweep = tile_sweep(xbk, gen)
+    print(f"dw and pulse device ms by tile [{card}]: " + json.dumps(sweep))
     fused_err, fused_rows = fused_kernel_phase(xbk, ops, gen)
     phase_s["kernel phases"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     km_flips, km_rows = kmeans_kernel_phase(kmk, gen)
     phase_s["kmeans kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fa_err, fa_rows = flash_kernel_phase(fak, ops, gen, ptxas_report(
-        "\n".join(lib.log for lib in libs)))
+    fa_err, fa_rows = flash_kernel_phase(fak, ops, gen, report)
     phase_s["flash kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -2348,6 +2585,21 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in timed),
             "timed": what,
         })
+        if name in ("crossbar_dw", "pulse_update"):   # device times too
+            entries[-1]["timed"] += (
+                "; *_ms_device: the same launches by device time (a CUDA "
+                "graph of 20 calls replayed), the kernel's and torch.bmm's; "
+                "tiles: the OUTER_PRODUCT_TILES index each launch took; "
+                "bit_pins: shapes of pins (a) and (b), (kernel, shape, "
+                "tile) triples equal to the picked tile")
+            entries[-1].update(
+                ms_device=sum(r["ms_device"] for r in timed),
+                library_ms_device=sum(r["library_ms_device"] for r in timed),
+                ms_device_per_launch=[r["ms_device"] for r in timed],
+                tiles=[r["tile"] for r in timed], bit_pins=pins)
+    next(e for e in entries if e["name"] == "crossbar_dw")[
+        "fp32_mnist_step_ms_device"] = [
+            r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]
     km = km_rows[0]     # the clustering path's own shape
     entries.append({
         "name": "kmeans_assign", "route": "cuda",

@@ -3,8 +3,10 @@
 ``load(name)`` compiles ``csrc/<name>.cu`` with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the repository root, keyed on a hash
-of the source and the flags: a fresh checkout builds at its first launch,
-an unchanged tree reuses the library.  Each library exposes a plain C
+of the source, every header under ``csrc/`` (``*.cuh``, found by nvcc through
+``-I csrc``) and the flags: a fresh checkout builds at its first launch, an
+unchanged tree reuses the library, and an edited header rebuilds every
+source.  Each library exposes a plain C
 interface and is loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  One library per source lets several sources build side by
 side: ``load_all`` starts one nvcc per source at once.  Nothing here runs
@@ -52,13 +54,21 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str, csrc: pathlib.Path = CSRC) -> str:
+    """The build key of ``csrc/<name>.cu``: a hash of it, of every
+    ``csrc/*.cuh`` (names and contents) and of the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> Library:
     """Build (if needed) and load ``csrc/<name>.cu``; raises if nvcc fails."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"{name}-{digest}.so"
+    path = BUILD_DIR / f"{name}-{source_digest(name)}.so"
     log_path = path.with_suffix(".log")
     build_s = 0.0
     if not path.exists():
@@ -67,8 +77,8 @@ def load(name: str) -> Library:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   str(source)],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
+                                   "-o", tmp, str(source)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source.name} "

@@ -45,11 +45,20 @@ from repro_torch.core.quantization import device_constant
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y / gridDim.z
 MAX_GRID_X = 2 ** 31 - 1  # ... and on gridDim.x
 BLOCK_M = 64             # fwd / bwd: samples per block (BM in the sources)
-BLOCK_K_DW = 32          # dw / pulse: fan-in lines per block (BK)
 BLOCK_K_TRAIN = 8        # fused kernel: fan-in lines per update block (UBK)
 MAX_N_TRAIN = 128        # fused kernel: columns an update block holds (NMAX)
 # dy element types the bwd and dw kernels read (dy_kind in the sources)
 _DY_KINDS = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
+# The tiles of the dw and pulse kernels, by index: csrc/outer_product.cuh's
+# OUTER_PRODUCT_TILES.  (TK, TN, WK, WN, BM, S): a TK x TN register tile a
+# thread, WK x WN compute warps of 8 x 4 threads a block (and a producer
+# warp), so BK = 8 TK WK fan-in lines and BN = 4 TN WN columns a block; BM
+# samples a stage, S stages in the ring.
+OUTER_PRODUCT_TILES = ((4, 4, 5, 1, 32, 4),   # many outputs
+                       (4, 2, 1, 4, 64, 4),   # many fp32 outputs
+                       (4, 2, 3, 1, 64, 4),   # some 50-200 k outputs
+                       (2, 2, 3, 1, 64, 4),   # few outputs
+                       (4, 2, 1, 4, 32, 4))   # many cores, a short batch
 
 
 def _adc_scale(adc_bits: int, adc_range: float) -> float:
@@ -62,6 +71,32 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     device: an operation with it is one IEEE fp32 operation on every device
     (a Python-float divisor may become a reciprocal multiply on CUDA)."""
     return device_constant(float(v), torch.float32, like.device)
+
+
+def tile_dims(tile: int) -> tuple[int, int]:
+    """(BK, BN): the fan-in lines and columns of one block of ``tile``."""
+    tk, tn, wk, wn, _, _ = OUTER_PRODUCT_TILES[tile]
+    return 8 * tk * wk, 4 * tn * wn
+
+
+def outer_product_tile(T: int, M: int, K: int, N: int,
+                       d_bytes: int = 4) -> int:
+    """The tile the dw and pulse kernels take for a (T, M, K, N) stack.
+
+    Every output is one thread's walk over all M samples, and a launch is
+    bound by how fast shared memory feeds the registers: 4 (TK + TN) bytes
+    a sample for TK TN fmaf, so a thread should hold many outputs, while a
+    small output needs small tiles to reach every SM.  The thresholds come
+    from chip_smoke.py's sweep of every tile on an H100 at the main paths'
+    shapes.  The summation order does not depend on the tile."""
+    outputs = T * K * N
+    if M <= 512 and outputs >= 500_000:
+        return 4        # the blocks of many cores share each SM
+    if outputs >= 200_000:
+        return 1 if d_bytes == 4 else 0   # codes: BN 16 keeps dequant cheap
+    if outputs >= 50_000:
+        return 2
+    return 3
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +158,23 @@ def pulse_counts_plain(xs: torch.Tensor, ds: torch.Tensor, *,
     return _two_lr(lr, acc) * acc / _f32(max_dw / levels, acc)
 
 
+def pulse_epilogue_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
+                         acc: torch.Tensor, *, lr: float | torch.Tensor,
+                         max_dw: float = 0.05, levels: int = 128,
+                         w_max: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pulse update from the batch-summed product ``acc`` (T, K, N):
+    counts ``clip(round(fp32(2 lr) acc / fp32(u)), +-levels)``, then
+    ``g± <- clip(g± ± 0.5 (counts u), 0, w_max)``, one fp32 operation at a
+    time in the kernel's order."""
+    unit = _f32(max_dw / levels, acc)
+    counts = torch.clamp(torch.round(_two_lr(lr, acc) * acc / unit),
+                         -levels, levels)
+    half = 0.5 * (counts * unit)
+    return (torch.clamp(g_plus + half, 0.0, w_max),
+            torch.clamp(g_minus - half, 0.0, w_max))
+
+
 def pulse_update_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
                        xs: torch.Tensor, ds: torch.Tensor, *,
                        lr: float | torch.Tensor,
@@ -130,12 +182,10 @@ def pulse_update_plain(g_plus: torch.Tensor, g_minus: torch.Tensor,
                        w_max: float = 1.0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: g± (T, K, N); xs (T, M, K); ds (T, M, N) ->
-    the new (g+, g-)."""
-    counts = pulse_counts_plain(xs, ds, lr=lr, max_dw=max_dw, levels=levels)
-    counts = torch.clamp(torch.round(counts), -levels, levels)
-    half = 0.5 * (counts * _f32(max_dw / levels, counts))
-    return (torch.clamp(g_plus + half, 0.0, w_max),
-            torch.clamp(g_minus - half, 0.0, w_max))
+    the new (g+, g-): the epilogue on the weight gradient's product."""
+    return pulse_epilogue_plain(g_plus, g_minus, crossbar_dw_plain(xs, ds),
+                                lr=lr, max_dw=max_dw, levels=levels,
+                                w_max=w_max)
 
 
 def _zero_ys(T: int, M: int, N: int, like: torch.Tensor) -> torch.Tensor:
@@ -180,8 +230,8 @@ def _launch_fn(name: str):
     fn.argtypes = {
         "crossbar_fwd": [ptr] * 4 + [i32] * 6 + [f32] * 2 + [ptr],
         "crossbar_bwd": [ptr, i32] + [ptr] * 4 + [i32] * 4 + [ptr],
-        "crossbar_dw": [ptr, ptr, i32, ptr, ptr] + [i32] * 4 + [ptr],
-        "pulse_update": [ptr] * 6 + [i32] * 4 + [f32] * 4 + [ptr],
+        "crossbar_dw": [ptr, ptr, i32, ptr, ptr] + [i32] * 5 + [ptr],
+        "pulse_update": [ptr] * 6 + [i32] * 4 + [f32] * 4 + [i32, ptr],
         "crossbar_train": ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
                            + [f32] * 3 + [ptr]),
     }[name]
@@ -192,9 +242,6 @@ def _launch_fn(name: str):
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
                    dtypes: tuple[torch.dtype, ...] = (torch.float32,)
                    ) -> None:
-    if t.device.type != "cuda" or t.device != like.device:
-        raise ValueError(f"{name} must lie on the first operand's CUDA "
-                         f"device, got {t.device} (first on {like.device})")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
                         f"got {t.dtype}")
@@ -202,6 +249,9 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
         raise ValueError(f"{name} must be rank 3, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.device.type != "cuda" or t.device != like.device:
+        raise ValueError(f"{name} must lie on the first operand's CUDA "
+                         f"device, got {t.device} (first on {like.device})")
 
 
 def _check_shapes(expect: dict[str, tuple[int, ...]],
@@ -288,32 +338,52 @@ def crossbar_bwd_kernel(dys: torch.Tensor, g_plus: torch.Tensor,
     return dx
 
 
+def _pick_tile(tile: int | None, T: int, M: int, K: int, N: int,
+               d_bytes: int) -> int:
+    """``tile``, or the one :func:`outer_product_tile` picks for the shape;
+    checks the index and the grid it gives."""
+    if tile is None:
+        tile = outer_product_tile(T, M, K, N, d_bytes)
+    if not 0 <= tile < len(OUTER_PRODUCT_TILES):
+        raise ValueError(f"tile must index OUTER_PRODUCT_TILES "
+                         f"(0..{len(OUTER_PRODUCT_TILES) - 1}), got {tile}")
+    bk, bn = tile_dims(tile)
+    _check_grid(T, -(-K // bk), M=M, K=K, N=N)
+    if -(-N // bn) > MAX_GRID_X:
+        raise ValueError(f"grid too large: N={N}")
+    return tile
+
+
 def crossbar_dw_kernel(xs: torch.Tensor, dys: torch.Tensor, *,
-                       dy_scale: torch.Tensor | None = None) -> torch.Tensor:
+                       dy_scale: torch.Tensor | None = None,
+                       tile: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: xs (T, M, K); dys (T, M, N) -> dw (T, K, N).
 
-    ``dys`` as for :func:`crossbar_bwd_kernel`."""
+    ``dys`` as for :func:`crossbar_bwd_kernel`.  ``tile`` indexes
+    ``OUTER_PRODUCT_TILES``; by default the shape picks it (every tile
+    gives the same bits)."""
     kind = _dy_kind(dys, dy_scale)
     _check_operand("xs", xs, dys)
     T, M, K = xs.shape
     N = dys.shape[2]
     _check_shapes({"dys": (T, M, N)}, {"xs": xs, "dys": dys})
-    _check_grid(T, -(-K // BLOCK_K_DW), M=M, K=K, N=N)
+    tile = _pick_tile(tile, T, M, K, N, dys.element_size())
     dw = torch.empty((T, K, N), dtype=torch.float32, device=xs.device)
     _run("crossbar_dw", xs.device, xs.data_ptr(), dys.data_ptr(), kind,
          None if dy_scale is None else dy_scale.data_ptr(), dw.data_ptr(),
-         T, M, K, N)
+         T, M, K, N, tile)
     return dw
 
 
 def pulse_update_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
                         xs: torch.Tensor, ds: torch.Tensor, *, lr: float,
                         max_dw: float = 0.05, levels: int = 128,
-                        w_max: float = 1.0
+                        w_max: float = 1.0, tile: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel: g± (T, K, N); xs (T, M, K); ds (T, M, N) ->
     new (g+, g-) in freshly allocated tensors.  ``2 lr`` and
-    ``max_dw / levels`` are formed in double and rounded once to fp32."""
+    ``max_dw / levels`` are formed in double and rounded once to fp32.
+    ``tile`` as for :func:`crossbar_dw_kernel`."""
     for name, t in (("g_plus", g_plus), ("g_minus", g_minus), ("xs", xs),
                     ("ds", ds)):
         _check_operand(name, t, g_plus)
@@ -321,13 +391,13 @@ def pulse_update_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
     M = xs.shape[1]
     _check_shapes({"g_minus": (T, K, N), "xs": (T, M, K), "ds": (T, M, N)},
                   {"g_plus": g_plus, "g_minus": g_minus, "xs": xs, "ds": ds})
-    _check_grid(T, -(-K // BLOCK_K_DW), M=M, K=K, N=N)
+    tile = _pick_tile(tile, T, M, K, N, 4)
     gp = torch.empty_like(g_plus)
     gm = torch.empty_like(g_minus)
     _run("pulse_update", g_plus.device, g_plus.data_ptr(),
          g_minus.data_ptr(), xs.data_ptr(), ds.data_ptr(), gp.data_ptr(),
          gm.data_ptr(), T, M, K, N, 2.0 * lr, max_dw / levels,
-         float(levels), w_max)
+         float(levels), w_max, tile)
     return gp, gm
 
 

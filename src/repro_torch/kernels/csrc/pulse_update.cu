@@ -21,40 +21,46 @@
 // keep nvcc from contracting the epilogue into FMAs.  Build without
 // --use_fast_math.
 //
-// Design: as the weight-gradient kernel (crossbar_dw.cu), whose product
-// this is: one block per 32 x 32 output tile and core, the batch axis M
-// walked in ascending order inside the block, each output one thread's
-// fmaf chain (no split-M, no atomics, deterministic), ragged edges masked;
-// then the pulse epilogue reads the old conductances and writes the new.
-// A pad line (zero input or zero error) sums to 0, so its conductances
-// stay as they were.
+// Design: acc is crossbar_dw.cu's product, from the same batch walk
+// (outer_product.cuh: one block per output tile and core, a ring of batch
+// stages that a producer warp fills with tensor-memory-accelerator boxes of
+// x and d, compute warps with register tiles, each cell one thread's
+// ascending-M fmaf chain from 0.f; no split-M, no atomics); then each
+// thread applies the pulse epilogue to its cells, reading the old
+// conductances and writing the new.  crossbar_train.cu's update blocks sum
+// in the same order, so the fused kernel equals this one bit for bit.  A
+// pad line (zero input or zero error) sums to 0, so its conductances stay
+// as they were.  The launcher takes the tile index the Python wrapper
+// picked for the shape.
 //
 // What bounds it on an H100 SXM: at M = 4096, mnist stage 0 (T=6, K=400,
 // N=100) is 1.97 GFLOP = 29 us at 67 TFLOP/s fp32, against
 // 6*4*(4096*400 + 4096*100 + 4*400*100) = 53 MB = 16 us of HBM traffic:
-// operations bound it; at M = 1 the 4 conductance arrays dominate and
-// bytes bound it.
+// operations bound it.  Shared memory feeding the registers binds first on
+// the CUDA cores (a 4 x 2 tile reads 24 bytes for its 8 fmaf), and N = 100
+// pads to the tile.  A stage of one or two cores (40,000 or 80,000 cells)
+// cannot give every warp scheduler a warp: there one warp's walk of the
+// 4096 samples sets the time, above the chain floor of 4096 dependent fmaf
+// (about 9 us) and the 4.9 us bound; only a split batch would go below it.
+// At M = 1 the 4 conductance arrays dominate and bytes bound it.
 
 #include <cuda_runtime.h>
 
+#include "outer_product.cuh"
+
 namespace {
 
-constexpr int BK = 32;        // fan-in lines per block
-constexpr int BN = 32;        // neurons per block
-constexpr int BMC = 32;       // samples per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int TK = BK / 16;   // outputs per thread along K
-constexpr int TN = BN / 16;   // outputs per thread along N
+using outer_product::Tile;
 
-__global__ void __launch_bounds__(THREADS)
+template <class C>
+__global__ void __launch_bounds__(C::THREADS)
 pulse_update(const float* __restrict__ gp, const float* __restrict__ gm,
              const float* __restrict__ x, const float* __restrict__ d,
              float* __restrict__ gp_out, float* __restrict__ gm_out,
              int M, int K, int N, float two_lr, float unit, float levels,
-             float w_max) {
-  __shared__ float xs[BMC][BK];
-  __shared__ float ds[BMC][BN];
-
+             float w_max,
+             const __grid_constant__ outer_product::Operands ops) {
+  extern __shared__ __align__(128) char smem[];
   const size_t t = blockIdx.z;
   x += t * static_cast<size_t>(M) * K;
   d += t * static_cast<size_t>(M) * N;
@@ -63,59 +69,23 @@ pulse_update(const float* __restrict__ gp, const float* __restrict__ gm,
   gm += g_off;
   gp_out += g_off;
   gm_out += g_off;
+  const int k0 = blockIdx.y * C::BK;
+  const int n0 = blockIdx.x * C::BN;
 
-  const int k0 = blockIdx.y * BK;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  float acc[C::TK][C::TN];
+  outer_product::batch_walk<C, float>(x, d, 1.f, M, K, N, blockIdx.z, k0, n0,
+                                      ops, smem, acc);
+  if (threadIdx.x >= C::COMPUTE) return;   // the producer warp
 
-  float acc[TK][TN];
+  const int k = k0 + outer_product::tile_k<C>();
+  const int n = n0 + outer_product::tile_n<C>();
 #pragma unroll
-  for (int i = 0; i < TK; ++i)
+  for (int i = 0; i < C::TK; ++i) {
+    if (k + i >= K) break;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += BMC) {
-#pragma unroll
-    for (int e = tid; e < BMC * BK; e += THREADS) {
-      const int mm = e / BK, kk = e % BK;
-      const int row = m0 + mm, col = k0 + kk;
-      xs[mm][kk] = (row < M && col < K)
-                       ? x[static_cast<size_t>(row) * K + col] : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BMC * BN; e += THREADS) {
-      const int mm = e / BN, nn = e % BN;
-      const int row = m0 + mm, col = n0 + nn;
-      ds[mm][nn] = (row < M && col < N)
-                       ? d[static_cast<size_t>(row) * N + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int mm = 0; mm < BMC; ++mm) {
-      float a[TK], b[TN];
-#pragma unroll
-      for (int i = 0; i < TK; ++i) a[i] = xs[mm][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ds[mm][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TK; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const size_t o = static_cast<size_t>(k) * N + n;
+    for (int j = 0; j < C::TN; ++j) {
+      if (n + j >= N) continue;
+      const size_t o = static_cast<size_t>(k + i) * N + n + j;
       float c = rintf(__fdiv_rn(__fmul_rn(two_lr, acc[i][j]), unit));
       c = fminf(fmaxf(c, -levels), levels);
       const float half = __fmul_rn(0.5f, __fmul_rn(c, unit));
@@ -125,20 +95,46 @@ pulse_update(const float* __restrict__ gp, const float* __restrict__ gm,
   }
 }
 
+template <class C>
+int launch(const float* gp, const float* gm, const float* x, const float* d,
+           float* gp_out, float* gm_out, int T, int M, int K, int N,
+           float two_lr, float unit, float levels, float w_max,
+           cudaStream_t stream) {
+  constexpr int smem = outer_product::smem_bytes<C, float>();
+  static unsigned long long devices = 0;
+  const cudaError_t err =
+      outer_product::allow_smem(pulse_update<C>, smem, devices);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + C::BN - 1) / C::BN, (K + C::BK - 1) / C::BK, T);
+  pulse_update<C><<<grid, C::THREADS, smem, stream>>>(
+      gp, gm, x, d, gp_out, gm_out, M, K, N, two_lr, unit, levels, w_max,
+      outer_product::operands<C>(x, d, true, T, M, K, N));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream).  Returns cudaGetLastError()
-// after the launch: 0 on success.  The caller checks shapes, types and
-// contiguity, keeps T and ceil(K / 32) within the grid's 65535 limit, and
+// Launch on `stream` (PyTorch's current stream); `tile` indexes
+// OUTER_PRODUCT_TILES.  Returns cudaGetLastError() after the launch: 0 on
+// success, -1 for an unknown tile.  The caller checks shapes, types and
+// contiguity, keeps T and the k-tiles within the grid's 65535 limit, and
 // rounds two_lr = 2 * lr and unit = max_dw / levels to fp32 once.
 extern "C" int pulse_update_launch(const float* gp, const float* gm,
                                    const float* x, const float* d,
                                    float* gp_out, float* gm_out, int T,
                                    int M, int K, int N, float two_lr,
                                    float unit, float levels, float w_max,
-                                   void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (K + BK - 1) / BK, T);
-  pulse_update<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      gp, gm, x, d, gp_out, gm_out, M, K, N, two_lr, unit, levels, w_max);
-  return static_cast<int>(cudaGetLastError());
+                                   int tile, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+#define OUTER_PRODUCT_CASE(i, tk, tn, wk, wn, bm, s)                     \
+    case i:                                                              \
+      return launch<Tile<tk, tn, wk, wn, bm, s>>(gp, gm, x, d, gp_out,   \
+                                                 gm_out, T, M, K, N,     \
+                                                 two_lr, unit, levels,   \
+                                                 w_max, st);
+    OUTER_PRODUCT_TILES(OUTER_PRODUCT_CASE)
+#undef OUTER_PRODUCT_CASE
+    default: return -1;
+  }
 }

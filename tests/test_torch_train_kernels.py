@@ -351,13 +351,17 @@ def test_stacked_rejects_mixed_ranks():
 
 
 def test_cuda_sources_reduce_without_atomics_or_library_calls():
-    """Each training kernel is its own CUDA C++ source for sm_90a: no
-    atomics (every output is one thread's ordered sum), no cuBLAS and no
-    finished kernel, no fast-math build flag."""
+    """Each training kernel is its own CUDA C++ source for sm_90a, with the
+    headers under ``csrc/`` that it includes: no atomics (every output is
+    one thread's ordered sum), no cuBLAS and no finished kernel, no
+    fast-math build flag."""
+    import re
     from repro_torch.kernels import _build
     for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw",
                  "pulse_update"):
         text = (_build.CSRC / f"{name}.cu").read_text()
+        text += "".join((_build.CSRC / h).read_text() for h in
+                        re.findall(r'#include "([\w.]+)"', text))
         src = "\n".join(line.split("//")[0] for line in text.splitlines())
         assert f'extern "C" int {name}_launch(' in src
         for banned in ("atomic", "cublas", "cutlass", "#include <torch"):
