@@ -12,10 +12,12 @@ Imports nothing of JAX or of the JAX package.  In order, it:
 2. builds the eight kernel sources from ``src/repro_torch/kernels/csrc``
    (five crossbar kernels, the k-means assignment, flash attention on the
    tensor cores for bf16 and on the CUDA cores for fp32; one nvcc per
-   source, all started together; dw and pulse share the header
-   ``outer_product.cuh``) and prints the build time and ptxas'
-   register/spill report, and per dw and pulse instance its registers,
-   spills and shared memory (a spill fails the run);
+   source, all started together; dw, pulse and the fused kernel's update
+   blocks share the batch walk of ``outer_product.cuh``, the forward and
+   the fused kernel's dx and y blocks the register-tiled walks of
+   ``row_product.cuh``) and prints the build time and ptxas'
+   register/spill report, and per dw, pulse, forward and fused instance
+   its registers, spills and shared memory (a spill fails the run);
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
@@ -30,8 +32,8 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    against the four-call sequence (fwd without activation, bwd, pulse on
    the dequantized error) — and time each kernel, its plain version and
    ``torch.bmm`` for the same contraction at M = 4096 beside the bound
-   (dw and pulse rows also by device time, a CUDA graph of 20 calls
-   replayed, for the kernel and for ``torch.bmm``); the dw and pulse
+   (also by device time, a CUDA graph of 20 calls replayed, for the
+   kernel and for ``torch.bmm``, per launch); the dw and pulse
    kernels' bit pins, which tie them and the fused kernel to one summation
    order: (a) dw on int8 codes with a scale equals dw on ``codes.float() *
    scale``, (b) pulse_update equals the plain pulse epilogue applied to the
@@ -40,9 +42,14 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    of ``OUTER_PRODUCT_TILES`` equal to the picked one (fp32, int8 and
    int32 codes, pulse) on ragged shapes and operands whose addresses are
    not 16-byte aligned; a sweep of every tile's device time at the main
-   paths' dw and pulse launches beside the tile the wrapper picks; the
-   ptxas registers, spills (none allowed) and shared memory of every dw and
-   pulse instance; and the k-means assignment kernel at the clustering
+   paths' dw and pulse launches beside the tile the wrapper picks; every
+   tile of ``ROW_PRODUCT_TILES`` equal to the picked forward tile, bit for
+   bit, at every recognition stage shape (M = 16, 4096), mnist's four
+   layers with the activation and 3-bit ADC epilogue (M = 16, 4096; N = 10
+   included) and ragged and unaligned operands, and a sweep of every
+   forward tile's device time at one mnist wave (M = 4096), one isolet wave
+   (M = 256) and mnist's layers beside the pick; and the k-means
+   assignment kernel at the clustering
    path's shape (n = 2048, d = 20, k = 10), n = 60000, k = 26, the
    hardware core's 32 x 32,
    the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
@@ -413,12 +420,14 @@ def kernel_phase(xbk, ops, gen) -> tuple[float, list[dict]]:
 def time_shape(xbk, app, xs, gp, gm) -> dict:
     T, M, K = xs.shape
     N = gp.shape[2]
-    return time_row("crossbar_fwd", T, M, K, N, {
+    return with_device_ms(time_row("crossbar_fwd", T, M, K, N, {
         "ms": lambda: xbk.crossbar_fwd_kernel(xs, gp, gm, activation=False),
         "plain_ms": lambda: xbk.crossbar_fwd_plain(xs, gp, gm,
                                                    activation=False),
         "library_ms": lambda: torch.bmm(xs, gp - gm),
-    }, app=app)
+    }, app=app), lambda: xbk.crossbar_fwd_kernel(xs, gp, gm,
+                                                 activation=False),
+        lambda: torch.bmm(xs, gp - gm), xbk.row_product_tile(T, M, K, N))
 
 
 def train_kernel_cases() -> list[dict]:
@@ -520,11 +529,12 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
     N = ds.shape[2]
     xt = xs.transpose(1, 2)
     return [
-        time_row("crossbar_bwd", T, M, K, N, {
+        with_device_ms(time_row("crossbar_bwd", T, M, K, N, {
             "ms": lambda: xbk.crossbar_bwd_kernel(ds, gp, gm),
             "plain_ms": lambda: xbk.crossbar_bwd_plain(ds, gp, gm),
             "library_ms": lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)),
-        }),
+        }), lambda: xbk.crossbar_bwd_kernel(ds, gp, gm),
+            lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)), None),
         with_device_ms(time_row("crossbar_dw", T, M, K, N, {
             "ms": lambda: xbk.crossbar_dw_kernel(xs, ds),
             "plain_ms": lambda: xbk.crossbar_dw_plain(xs, ds),
@@ -542,11 +552,13 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
     ]
 
 
-def with_device_ms(row: dict, kernel, library, tile: int) -> dict:
+def with_device_ms(row: dict, kernel, library, tile: int | None) -> dict:
     """Add the kernel's and the library call's device times (``graph_ms``)
-    and the tile the wrapper picked to a row."""
-    row.update(ms_device=graph_ms(kernel), library_ms_device=graph_ms(library),
-               tile=tile)
+    and the tile the wrapper picked (where it picks one) to a row."""
+    row.update(ms_device=graph_ms(kernel),
+               library_ms_device=graph_ms(library))
+    if tile is not None:
+        row["tile"] = tile
     return row
 
 
@@ -715,6 +727,151 @@ def tile_sweep(xbk, gen) -> list[dict]:
     return rows
 
 
+def row_product_cases() -> list[dict]:
+    """Forward cases of the tile pins: every recognition stage shape at M =
+    16 and 4096, mnist's four layers (crossbar_apply's and
+    mlp_forward(use_kernel=True)'s shapes, N = 10 included) at M = 16 and
+    4096 with the activation and 3-bit ADC epilogue, and ragged and
+    unaligned operands (cp.async paths: K = 37, 45; N = 11, 13, 9)."""
+    cases = [dict(shape=(T, M, K, N)) for M in (16, 4096)
+             for T, K, N in dict.fromkeys(s for v in WAVE_SHAPES.values()
+                                          for s in v)]
+    cases += [dict(shape=(1, M, K, N), activation=True, adc_bits=ADC_BITS)
+              for M in (16, 4096) for K, N in MNIST_LAYERS]
+    cases += [dict(shape=(5, 3, 37, 11)), dict(shape=(6, 7, 45, 13)),
+              dict(shape=(3, 37, 300, 26), offset=1),
+              dict(shape=(2, 70, 17, 9), offset=3),
+              dict(shape=(6, 100, 400, 100), offset=2)]
+    return cases
+
+
+def row_product_phase(xbk, gen) -> int:
+    """Every tile of ``ROW_PRODUCT_TILES`` gives the picked tile's bits for
+    the forward kernel at every ``row_product_cases`` shape (the epilogue
+    included); the picked tile is held against the plain version (3-bit
+    codes: flips only at a boundary).  Returns the (shape, tile) pairs
+    pinned.  Launches here are not counted."""
+    pins = 0
+    for case in row_product_cases():
+        T, M, K, N = case["shape"]
+        off = case.get("offset", 0)
+        act, bits = case.get("activation", False), case.get("adc_bits")
+        xs = uniform((T, M, K), -0.5, 0.5, gen)
+        gp = uniform((T, K, N), 0.0, 0.02, gen)
+        gm = uniform((T, K, N), 0.0, 0.02, gen)
+        if off:
+            xs, gp, gm = (offset_copy(a, off) for a in (xs, gp, gm))
+        def run(t):
+            return xbk.crossbar_fwd_kernel(xs, gp, gm, activation=act,
+                                           adc_bits=bits, tile=t)
+        ref = run(None)
+        want = xbk.crossbar_fwd_plain(xs, gp, gm, activation=act,
+                                      adc_bits=bits)
+        what = f"fwd {case}"
+        if bits is None:
+            close(ref, want, what)
+        else:
+            code_flips(xbk.crossbar_fwd_plain(xs, gp, gm, activation=act),
+                       ref)
+        for t in range(len(xbk.ROW_PRODUCT_TILES)):
+            got = run(t)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{what}: tile {t} vs the picked tile, "
+                                     f"{differing(got, ref)}")
+            pins += 1
+    torch.cuda.synchronize()
+    print(f"row-product pins: every forward tile == the picked tile, bit "
+          f"for bit, at {pins} (shape, tile) pairs "
+          f"({len(row_product_cases())} shapes)")
+    return pins
+
+
+def fwd_tile_sweep(xbk, gen) -> list[dict]:
+    """Device time (``graph_ms``) of every forward tile at the main paths'
+    launches: one mnist_class wave at M = 4096, one isolet_class wave at M
+    = 256 and mnist's four layers at M = 4096; beside the tile the wrapper
+    picks."""
+    shapes = [(T, M, K, N) for app, M in (("mnist_class", 4096),
+                                          ("isolet_class", 256))
+              for T, K, N in dict.fromkeys(WAVE_SHAPES[app])]
+    shapes += [(1, 4096, K, N) for K, N in MNIST_LAYERS]
+    rows = []
+    for T, M, K, N in shapes:
+        xs = uniform((T, M, K), -0.5, 0.5, gen)
+        gp = uniform((T, K, N), 0.0, 0.02, gen)
+        gm = uniform((T, K, N), 0.0, 0.02, gen)
+        ms = [graph_ms(lambda: xbk.crossbar_fwd_kernel(
+            xs, gp, gm, activation=False, tile=t))
+            for t in range(len(xbk.ROW_PRODUCT_TILES))]
+        rows.append({"kernel": "crossbar_fwd", "T": T, "M": M, "K": K,
+                     "N": N, "picked": xbk.row_product_tile(T, M, K, N),
+                     "best": ms.index(min(ms)),
+                     "ms_by_tile": [round(v, 5) for v in ms]})
+    return rows
+
+
+def row_product_ptxas(report: dict[str, dict]) -> dict[str, list]:
+    """Registers, spill bytes (stores + loads) and dynamic shared memory of
+    every forward instance (by ROW_PRODUCT_TILES index) and every fused
+    instance (by the update walk's OUTER_PRODUCT_TILES index and the error
+    type; shared memory at N = 100 without the forward, the compiled
+    step's launch); raises on a spill."""
+    import re
+    from repro_torch.kernels import crossbar as xbk
+    out = {}
+    num = r"ELi".join([r"ILi(\d+)"] + [r"(\d+)"] * 5)
+    fwd = re.compile(r"crossbar_fwdIN11row_product4Tile" + num + r"EEE")
+    train = re.compile(r"crossbar_trainIN13outer_product4Tile" + num
+                       + r"EEE([afi])E")
+    for key, v in report.items():
+        spills = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+        m = fwd.search(key)
+        if m:
+            dims = tuple(map(int, m.groups()))
+            tm, tc, ntc, ntm, br, stages = dims
+            bm, bc = tm * ntm, tc * ntc
+            stage = (-(-4 * bm * (br + 4) // 128) * 128
+                     + 2 * -(-4 * br * bc // 128) * 128)
+            name = f"crossbar_fwd[{xbk.ROW_PRODUCT_TILES.index(dims)}]"
+            smem = stages * stage + 24 * stages
+        else:
+            m = train.search(key)
+            if not m:
+                continue
+            tile = xbk.OUTER_PRODUCT_TILES.index(
+                tuple(map(int, m.groups()[:6])))
+            td = {"f": "f32", "a": "int8", "i": "int32"}[m.group(7)]
+            name = f"crossbar_train[{tile}] {td}"
+            smem = train_smem(tile, td, 100)
+        if spills:
+            raise AssertionError(f"{key}: {spills} bytes of register spills")
+        out[name] = [v.get("registers"), spills, smem]
+    want = len(xbk.ROW_PRODUCT_TILES) + 3 * len(xbk.OUTER_PRODUCT_TILES)
+    if len(out) != want:
+        raise AssertionError(f"ptxas report: {len(out)} fwd/train instances, "
+                             f"expected {want}")
+    return dict(sorted(out.items()))
+
+
+def train_smem(tile: int, td: str, N: int) -> int:
+    """Dynamic shared memory of a fused launch without the forward: the
+    larger of the update walk's ring (outer_product.cuh) and the dx walk's
+    B and ring (row_product.cuh), as the launcher computes them."""
+    from repro_torch.kernels import crossbar as xbk
+    tk, tn, wk, wn, bm, stages = xbk.OUTER_PRODUCT_TILES[tile]
+    bk, bn = 8 * tk * wk, 4 * tn * wn
+    raw = bm * ((bn + 15) // 16 * 16 + 16) if td == "int8" else 0
+    update = stages * (-(-(4 * bm * (bk + bn) + raw) // 128) * 128 + 16)
+    dbm, dbc = xbk.train_dx_dims(tile)
+    p = (N + 3) // 4 * 4
+    p += 0 if p // 4 % 2 else 4
+    ring = -(-4 * dbm * p // 128) * 128
+    if td == "int8":
+        ring += -(-dbm * ((p + 15) // 16 * 16 + 16) // 128) * 128
+    dx = -(-4 * N * (dbc + 4) // 128) * 128 + 3 * ring + 16 * 3
+    return max(update, dx)
+
+
 def outer_product_ptxas(report: dict[str, dict]) -> dict[str, list]:
     """Registers, spill bytes (stores + loads) and dynamic shared memory of
     every dw and pulse instance, by kernel, tile and dy type; raises on a
@@ -845,12 +1002,18 @@ def time_fused_shape(xbk, xs, ds, gp, gm, lr) -> dict:
     N = ds.shape[2]
     lr_t = torch.full((1,), lr, device="cuda")
     xt = xs.transpose(1, 2)
-    return time_row("crossbar_train", T, M, K, N, {
+    tile = xbk.outer_product_tile(T, M, K, N, 4)
+    row = with_device_ms(time_row("crossbar_train", T, M, K, N, {
         "ms": lambda: xbk.crossbar_train_kernel(gp, gm, xs, ds, lr=lr_t),
         "plain_ms": lambda: xbk.crossbar_train_plain(gp, gm, xs, ds, lr=lr),
         "library_ms": lambda: (torch.bmm(ds, (gp - gm).transpose(1, 2)),
                                torch.bmm(xt, ds)),
-    }, library="bmm for dx + bmm for dw, without the pulse epilogue")
+    }, library="bmm for dx + bmm for dw, without the pulse epilogue"),
+        lambda: xbk.crossbar_train_kernel(gp, gm, xs, ds, lr=lr_t),
+        lambda: (torch.bmm(ds, (gp - gm).transpose(1, 2)),
+                 torch.bmm(xt, ds)), tile)
+    row["dx_run"] = xbk.train_dx_run(M, tile)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2369,6 +2532,9 @@ def main() -> int:
     report = ptxas_report("\n".join(lib.log for lib in libs))
     print("ptxas, dw and pulse instances [registers, spill bytes, dynamic "
           "shared memory]: " + json.dumps(outer_product_ptxas(report)))
+    print("ptxas, forward and fused instances [registers, spill bytes, "
+          "dynamic shared memory (fused: N = 100, forward off)]: "
+          + json.dumps(row_product_ptxas(report)))
 
     phase_s = {"build": time.perf_counter() - t0}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2378,6 +2544,9 @@ def main() -> int:
     pins = outer_product_phase(xbk, gen)
     sweep = tile_sweep(xbk, gen)
     print(f"dw and pulse device ms by tile [{card}]: " + json.dumps(sweep))
+    pins["fwd tiles"] = row_product_phase(xbk, gen)
+    print(f"forward device ms by tile [{card}]: "
+          + json.dumps(fwd_tile_sweep(xbk, gen)))
     fused_err, fused_rows = fused_kernel_phase(xbk, ops, gen)
     phase_s["kernel phases"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2585,18 +2754,27 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in timed),
             "timed": what,
         })
-        if name in ("crossbar_dw", "pulse_update"):   # device times too
+        entries[-1]["timed"] += (
+            "; *_ms_device: the same launches by device time (a CUDA graph "
+            "of 20 calls replayed), the kernel's and the library's, in sum "
+            "and per launch")
+        entries[-1].update(
+            ms_device=sum(r["ms_device"] for r in timed),
+            library_ms_device=sum(r["library_ms_device"] for r in timed),
+            ms_device_per_launch=[r["ms_device"] for r in timed],
+            library_ms_device_per_launch=[r["library_ms_device"]
+                                          for r in timed])
+        if name != "crossbar_bwd":
             entries[-1]["timed"] += (
-                "; *_ms_device: the same launches by device time (a CUDA "
-                "graph of 20 calls replayed), the kernel's and torch.bmm's; "
-                "tiles: the OUTER_PRODUCT_TILES index each launch took; "
-                "bit_pins: shapes of pins (a) and (b), (kernel, shape, "
-                "tile) triples equal to the picked tile")
-            entries[-1].update(
-                ms_device=sum(r["ms_device"] for r in timed),
-                library_ms_device=sum(r["library_ms_device"] for r in timed),
-                ms_device_per_launch=[r["ms_device"] for r in timed],
-                tiles=[r["tile"] for r in timed], bit_pins=pins)
+                "; tiles: the ROW_PRODUCT_TILES (fwd) or "
+                "OUTER_PRODUCT_TILES (dw, pulse, the fused kernel's update "
+                "walk) index each launch took; bit_pins: shapes of pins (a) "
+                "and (b), (kernel, shape, tile) triples of dw and pulse and "
+                "(shape, tile) pairs of fwd equal to the picked tile")
+            entries[-1].update(tiles=[r["tile"] for r in timed],
+                               bit_pins=pins)
+        if name == "crossbar_train":
+            entries[-1]["dx_runs"] = [r["dx_run"] for r in timed]
     next(e for e in entries if e["name"] == "crossbar_dw")[
         "fp32_mnist_step_ms_device"] = [
             r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]

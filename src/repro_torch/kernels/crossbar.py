@@ -44,9 +44,9 @@ from repro_torch.core.quantization import device_constant
 
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y / gridDim.z
 MAX_GRID_X = 2 ** 31 - 1  # ... and on gridDim.x
-BLOCK_M = 64             # fwd / bwd: samples per block (BM in the sources)
-BLOCK_K_TRAIN = 8        # fused kernel: fan-in lines per update block (UBK)
-MAX_N_TRAIN = 128        # fused kernel: columns an update block holds (NMAX)
+BLOCK_M = 64             # bwd: samples per block (BM in the source)
+MAX_N_TRAIN = 128        # fused kernel: columns a dx block holds in B
+DX_RUN = 8               # fused kernel: row tiles a dx block walks at most
 # dy element types the bwd and dw kernels read (dy_kind in the sources)
 _DY_KINDS = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
 # The tiles of the dw and pulse kernels, by index: csrc/outer_product.cuh's
@@ -59,6 +59,15 @@ OUTER_PRODUCT_TILES = ((4, 4, 5, 1, 32, 4),   # many outputs
                        (4, 2, 3, 1, 64, 4),   # some 50-200 k outputs
                        (2, 2, 3, 1, 64, 4),   # few outputs
                        (4, 2, 1, 4, 32, 4))   # many cores, a short batch
+# The tiles of the forward kernel, by index: csrc/row_product.cuh's
+# ROW_PRODUCT_TILES.  (TM, TC, NTC, NTM, BR, S): a TM x TC register tile a
+# thread, NTC x NTM compute threads a block (whole warps, and a producer
+# warp), so BM = TM NTM rows and BC = TC NTC columns a block; BR fan-in
+# lines a stage, S stages in the ring.
+ROW_PRODUCT_TILES = ((8, 4, 25, 6, 32, 3),    # 48 x 100: many outputs
+                     (8, 4, 25, 8, 32, 3),    # 64 x 100: a grid of ~128
+                     (4, 4, 8, 16, 32, 4),    # 64 x 32: few outputs
+                     (4, 4, 4, 16, 32, 4))    # 64 x 16: N <= 16
 
 
 def _adc_scale(adc_bits: int, adc_range: float) -> float:
@@ -97,6 +106,66 @@ def outer_product_tile(T: int, M: int, K: int, N: int,
     if outputs >= 50_000:
         return 2
     return 3
+
+
+def row_tile_dims(tile: int) -> tuple[int, int]:
+    """(BM, BC): the rows and columns of one block of forward ``tile``."""
+    tm, tc, ntc, ntm, _, _ = ROW_PRODUCT_TILES[tile]
+    return tm * ntm, tc * ntc
+
+
+def row_product_tile(T: int, M: int, K: int, N: int) -> int:
+    """The tile the forward kernel takes for a (T, M, K, N) stack.
+
+    Every output is one thread's walk over all K fan-in lines.  Tiles of
+    25 x 4 columns cover N = 100 (every chip stage) and its multiples
+    without padding, with 8 x 4 register tiles; where a stage has few
+    outputs (one core: 409,600) their blocks leave SMs idle and 4 x 4
+    tiles of 32 columns spread further, of 16 columns below 100,000
+    outputs and for N <= 16.  The thresholds come from chip_smoke.py's
+    sweep of every tile on an H100 at the main paths' shapes.  The
+    summation order does not depend on the tile."""
+    outputs = T * M * N
+    if N <= 16 or outputs < 100_000:
+        return 3
+    if outputs >= 1_000_000:
+        return 0
+    if outputs >= 600_000:
+        return 1
+    return 2
+
+
+def train_dx_run(M: int, tile: int) -> int:
+    """Row tiles a dx block of the fused kernel walks, for update ``tile``:
+    up to DX_RUN, split evenly over the core's row tiles.  A run amortizes
+    forming the block's columns of w and fills the ring; a sweep of the
+    run on an H100 found 8 best, or level with the best, at the main
+    paths' stacks (T = 1, 2, 6 at M = 4096; T = 40 at M = 256)."""
+    m_tiles = -(-M // train_dx_dims(tile)[0])
+    return -(-m_tiles // -(-m_tiles // DX_RUN))
+
+
+def train_dx_dims(tile: int) -> tuple[int, int]:
+    """(BM, BC) of the fused kernel's dx and y blocks under update
+    ``tile``: 4 x 4 register tiles, 8 column groups by as many row groups
+    as the update walk's compute warps allow (row_product::TrainTile)."""
+    _, _, wk, wn, _, _ = OUTER_PRODUCT_TILES[tile]
+    return 4 * (32 * wk * wn // 8), 32
+
+
+def train_blocks(T: int, M: int, K: int, N: int, tile: int, dx_run: int,
+                 compute_y: bool) -> int:
+    """The fused kernel's one-dimensional grid: update blocks (the walk's
+    BK x BN tiles), dx blocks (runs of ``dx_run`` row tiles of 32 columns)
+    and, with ``compute_y``, y blocks, for every core."""
+    bk, bn = tile_dims(tile)
+    bm, bc = train_dx_dims(tile)
+    m_tiles = -(-M // bm)
+    per_core = (-(-K // bk) * -(-N // bn)
+                + -(-K // bc) * -(-m_tiles // dx_run))
+    if compute_y:
+        per_core += -(-N // bc) * m_tiles
+    return T * per_core
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +297,11 @@ def _launch_fn(name: str):
     fn = getattr(_build.load(name).cdll, f"{name}_launch")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
-        "crossbar_fwd": [ptr] * 4 + [i32] * 6 + [f32] * 2 + [ptr],
+        "crossbar_fwd": [ptr] * 4 + [i32] * 6 + [f32] * 2 + [i32, ptr],
         "crossbar_bwd": [ptr, i32] + [ptr] * 4 + [i32] * 4 + [ptr],
         "crossbar_dw": [ptr, ptr, i32, ptr, ptr] + [i32] * 5 + [ptr],
         "pulse_update": [ptr] * 6 + [i32] * 4 + [f32] * 4 + [i32, ptr],
-        "crossbar_train": ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
+        "crossbar_train": ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 7
                            + [f32] * 3 + [ptr]),
     }[name]
     fn.restype = ctypes.c_int
@@ -291,15 +360,33 @@ def _run(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def _pick_row_tile(tile: int | None, T: int, M: int, K: int,
+                   N: int) -> int:
+    """``tile``, or the one :func:`row_product_tile` picks for the shape;
+    checks the index and the grid it gives."""
+    if tile is None:
+        tile = row_product_tile(T, M, K, N)
+    if not 0 <= tile < len(ROW_PRODUCT_TILES):
+        raise ValueError(f"tile must index ROW_PRODUCT_TILES "
+                         f"(0..{len(ROW_PRODUCT_TILES) - 1}), got {tile}")
+    bm, bc = row_tile_dims(tile)
+    _check_grid(T, -(-M // bm), M=M, K=K, N=N)
+    if -(-N // bc) > MAX_GRID_X:
+        raise ValueError(f"grid too large: N={N}")
+    return tile
+
+
 def crossbar_fwd_kernel(xs: torch.Tensor, g_plus: torch.Tensor,
                         g_minus: torch.Tensor, *, activation: bool = True,
-                        adc_bits: int | None = None,
-                        adc_range: float = 0.5) -> torch.Tensor:
+                        adc_bits: int | None = None, adc_range: float = 0.5,
+                        tile: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: xs (T, M, K); g± (T, K, N) -> (T, M, N) fp32.
 
     Checks device, dtype, shape and contiguity, allocates the output with
     ``torch.empty`` and launches on the current stream; raises if the launch
     reports an error.  ``adc_bits`` fuses the output ADC into the epilogue.
+    ``tile`` indexes ``ROW_PRODUCT_TILES``; by default the shape picks it
+    (every tile gives the same bits).
     """
     for name, t in (("xs", xs), ("g_plus", g_plus), ("g_minus", g_minus)):
         _check_operand(name, t, xs)
@@ -307,12 +394,12 @@ def crossbar_fwd_kernel(xs: torch.Tensor, g_plus: torch.Tensor,
     N = g_plus.shape[2]
     _check_shapes({"g_plus": (T, K, N), "g_minus": (T, K, N)},
                   {"xs": xs, "g_plus": g_plus, "g_minus": g_minus})
-    _check_grid(T, -(-M // BLOCK_M), M=M, N=N)
+    tile = _pick_row_tile(tile, T, M, K, N)
     scale = _adc_scale(adc_bits, adc_range) if adc_bits is not None else 1.0
     y = torch.empty((T, M, N), dtype=torch.float32, device=xs.device)
     _run("crossbar_fwd", xs.device, xs.data_ptr(), g_plus.data_ptr(),
          g_minus.data_ptr(), y.data_ptr(), T, M, K, N, int(activation),
-         int(adc_bits is not None), adc_range, scale)
+         int(adc_bits is not None), adc_range, scale, tile)
     return y
 
 
@@ -430,11 +517,9 @@ def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
     if N > MAX_N_TRAIN:
         raise ValueError(f"the fused kernel holds at most {MAX_N_TRAIN} "
                          f"columns per core, got N={N}")
-    per_core = (-(-K // BLOCK_K_TRAIN)
-                + -(-K // BLOCK_M) * -(-M // BLOCK_M))   # update + dx
-    if compute_y:
-        per_core += -(-N // BLOCK_M) * -(-M // BLOCK_M)
-    if T * per_core > MAX_GRID_X:   # one-dimensional grid over the stack
+    tile = outer_product_tile(T, M, K, N, ds.element_size())
+    dx_run = train_dx_run(M, tile)
+    if train_blocks(T, M, K, N, tile, dx_run, compute_y) > MAX_GRID_X:
         raise ValueError(f"grid too large: M={M}, K={K}, N={N}")
     if not isinstance(lr, torch.Tensor):
         lr = _f32(lr, ds)
@@ -450,6 +535,6 @@ def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
          xs.data_ptr(), ds.data_ptr(), kind,
          None if dy_scale is None else dy_scale.data_ptr(), lr.data_ptr(),
          ys.data_ptr() if compute_y else None, dxs.data_ptr(),
-         gp.data_ptr(), gm.data_ptr(), T, M, K, N, int(compute_y),
-         max_dw / levels, float(levels), w_max)
+         gp.data_ptr(), gm.data_ptr(), T, M, K, N, int(compute_y), tile,
+         dx_run, max_dw / levels, float(levels), w_max)
     return ys, dxs, gp, gm

@@ -11,107 +11,69 @@
 //   contiguous; h(o) = clip(0.25 o, -0.5, 0.5) when `activation`; the
 //   optional ADC is clip(o, +-r) then rint((o + r) / scale) * scale - r.
 //
-// Design: one block per (n-tile, m-tile, core).  Each block stages a
-// BM x BK tile of x and a BK x BN tile of delta = gp - gm (formed as the
-// tile is loaded) in shared memory and walks K in ascending order, each
-// thread keeping a 4 x 4 block of fp32 sums in registers (fmaf).  Ragged
-// M/N/K edges are masked in the loads and the store, so the wrapper pads
-// nothing (N = 100 and K = 200/300/600 are not tile multiples).  There is
-// no split-K and no atomics: every output is one thread's ascending-K sum,
-// so results are deterministic run to run.  The epilogue rounds halves to
-// even (rintf) and divides with IEEE division (__fdiv_rn), as the
-// reference does; explicit _rn intrinsics keep nvcc from contracting the
-// epilogue into FMAs.  Build without --use_fast_math.
+// Design: the product is row_product.cuh's forward walk.  One block per
+// (column tile, row tile, core); a producer warp keeps a ring of fan-in
+// stages in flight (x, g+ and g- as tensor-memory-accelerator boxes, or
+// 4-byte cp.async copies where no tensor map can read an operand: K = 41,
+// N = 10, 15 or 26, a base not 16-byte aligned) and forms w = g+ - g- in
+// shared memory; compute warps hold a TM x TC register tile each and read
+// x along K and w along N as vector loads.  Every output is one thread's
+// ascending-K fmaf chain from 0.f, as in the reference's order and in the
+// fused kernel's y blocks, so every tile gives the same bits and the
+// launcher may pick any (by shape, from a sweep on the card).  Ragged
+// M/N/K edges are masked, nothing is padded by the wrapper (N = 100 is a
+// whole tile of 25 x 4 columns).  No split-K, no atomics.  The epilogue
+// rounds halves to even (rintf) and divides with IEEE division
+// (__fdiv_rn), as the reference does; explicit _rn intrinsics keep nvcc
+// from contracting the epilogue into FMAs.  Build without --use_fast_math.
 //
 // What bounds it on an H100 SXM: without TF32 the product runs on the CUDA
 // cores at 67 TFLOP/s fp32.  At the smoke's batch M = 4096, mnist stage 0
 // (T=6, K=400, N=100) is 2*6*4096*400*100 = 1.97 GFLOP = 29 us at that
 // rate, against 6*4*(4096*400 + 2*400*100 + 4096*100) = 51 MB = 15 us of
-// HBM traffic at 3.35 TB/s: operations bound it.  This simple design is
-// limited by shared-memory reads (8 loads per 16 FMAs) well below that
-// peak; wgmma/TMA tiling is later work.  Measured times, beside the card's
-// name and power limit, are in PERF.md (chip_smoke.py prints them).
+// HBM traffic: operations bound it.  The register tile's vector loads keep
+// shared memory below the fp32 rate; what is left is the tail of the grid
+// (a stage of one core has 409,600 outputs, a few warps per SM) and the
+// g+/g- boxes every row tile reads again from L2.  Measured times, beside
+// the card's name and power limit, are in PERF.md (chip_smoke.py prints
+// them with every tile's time).
 
 #include <cuda_runtime.h>
 
+#include "row_product.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // samples (rows of x) per block
-constexpr int BN = 64;        // neurons (output columns) per block
-constexpr int BK = 16;        // fan-in lines per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int TM = BM / 16;   // outputs per thread along M
-constexpr int TN = BN / 16;   // outputs per thread along N
+using row_product::Tile;
 
-__global__ void __launch_bounds__(THREADS)
+template <class C>
+__global__ void __launch_bounds__(C::THREADS)
 crossbar_fwd(const float* __restrict__ x, const float* __restrict__ gp,
-             const float* __restrict__ gm, float* __restrict__ y,
-             int M, int K, int N, int activation, int adc,
-             float adc_range, float scale) {
-  __shared__ float xs[BK][BM + 1];  // x tile, transposed (+1: bank skew)
-  __shared__ float ws[BK][BN];      // delta tile
-
+             const float* __restrict__ gm, float* __restrict__ y, int M,
+             int K, int N, int activation, int adc, float adc_range,
+             float scale, const __grid_constant__ row_product::FwdMaps maps) {
+  extern __shared__ __align__(128) char smem[];
   const size_t t = blockIdx.z;
-  x += t * static_cast<size_t>(M) * K;
-  gp += t * static_cast<size_t>(K) * N;
-  gm += t * static_cast<size_t>(K) * N;
+  const int m0 = blockIdx.y * C::BM;
+  const int c0 = blockIdx.x * C::BC;
+  float acc[C::TM][C::TC];
+  row_product::fwd_walk<C>(x + t * static_cast<size_t>(M) * K,
+                           gp + t * static_cast<size_t>(K) * N,
+                           gm + t * static_cast<size_t>(K) * N, M, K, N,
+                           blockIdx.z, m0, c0, maps, smem, acc);
+  if (threadIdx.x >= C::ACTIVE) return;   // idle lanes and the producer
+
   y += t * static_cast<size_t>(M) * N;
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[TM][TN];
+  const int mt = m0 + row_product::tile_m<C>();
+  const int ct = c0 + row_product::tile_c<C>();
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < C::TM; ++i) {
+    const int m = mt + C::NTM * i;
+    if (m >= M) break;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int mm = e / BK, kk = e % BK;
-      const int row = m0 + mm, col = k0 + kk;
-      xs[kk][mm] = (row < M && col < K)
-                       ? x[static_cast<size_t>(row) * K + col] : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, nn = e % BN;
-      const int row = k0 + kk, col = n0 + nn;
-      float w = 0.f;
-      if (row < K && col < N) {
-        const size_t o = static_cast<size_t>(row) * N + col;
-        w = __fsub_rn(gp[o], gm[o]);
-      }
-      ws[kk][nn] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
+    for (int j = 0; j < C::TC; ++j) {
+      const int n = ct + j;
+      if (n >= N) break;
       float o = acc[i][j];
       if (activation) o = fminf(fmaxf(__fmul_rn(o, 0.25f), -0.5f), 0.5f);
       if (adc) {
@@ -124,18 +86,44 @@ crossbar_fwd(const float* __restrict__ x, const float* __restrict__ gp,
   }
 }
 
+template <class C>
+int launch(const float* x, const float* gp, const float* gm, float* y,
+           int T, int M, int K, int N, int activation, int adc,
+           float adc_range, float scale, cudaStream_t stream) {
+  constexpr int smem = row_product::fwd_smem_bytes<C>();
+  static unsigned long long devices = 0;
+  const cudaError_t err =
+      outer_product::allow_smem(crossbar_fwd<C>, smem, devices);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + C::BC - 1) / C::BC, (M + C::BM - 1) / C::BM, T);
+  crossbar_fwd<C><<<grid, C::THREADS, smem, stream>>>(
+      x, gp, gm, y, M, K, N, activation, adc, adc_range, scale,
+      row_product::fwd_maps<C>(x, gp, gm, T, M, K, N));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream).  Returns cudaGetLastError()
-// after the launch: 0 on success.  The caller checks shapes, types and
-// contiguity and keeps T and ceil(M / 64) within the grid's 65535 limit.
+// Launch on `stream` (PyTorch's current stream, or the stream a CUDA graph
+// captures: the tensor maps are launch parameters, so a replay reads the
+// captured buffers); `tile` indexes ROW_PRODUCT_TILES.  Returns
+// cudaGetLastError() after the launch: 0 on success, -1 for an unknown
+// tile.  The caller checks shapes, types and contiguity and keeps T and
+// the row tiles within the grid's 65535 limit.
 extern "C" int crossbar_fwd_launch(const float* x, const float* gp,
                                    const float* gm, float* y, int T, int M,
                                    int K, int N, int activation, int adc,
-                                   float adc_range, float scale,
+                                   float adc_range, float scale, int tile,
                                    void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, T);
-  crossbar_fwd<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, gp, gm, y, M, K, N, activation, adc, adc_range, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+#define ROW_PRODUCT_CASE(i, tm, tc, ntc, ntm, br, s)                      \
+    case i:                                                               \
+      return launch<Tile<tm, tc, ntc, ntm, br, s>>(x, gp, gm, y, T, M, K, \
+                                                   N, activation, adc,    \
+                                                   adc_range, scale, st);
+    ROW_PRODUCT_TILES(ROW_PRODUCT_CASE)
+#undef ROW_PRODUCT_CASE
+    default: return -1;
+  }
 }

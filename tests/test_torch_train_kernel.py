@@ -231,22 +231,31 @@ def test_non_cpu_tensors_go_to_the_kernel_or_raise():
 
 
 def test_cuda_source_reduces_without_atomics_or_library_calls():
-    """The fused kernel is its own CUDA C++ source for sm_90a: no atomics,
-    no cuBLAS or finished kernel, no fast-math; its C entry point matches
-    the launcher's argument list."""
+    """The fused kernel is its own CUDA C++ source for sm_90a, with the
+    headers under ``csrc/`` that it includes (the update walk of
+    ``outer_product.cuh``, the dx and y walks of ``row_product.cuh``): no
+    atomics, no cuBLAS or finished kernel, no fast-math; its C entry point
+    matches the launcher's argument list."""
+    import re
     from repro_torch.kernels import _build
     text = (_build.CSRC / "crossbar_train.cu").read_text()
+    headers = re.findall(r'#include "([\w.]+)"', text)
+    assert headers == ["outer_product.cuh", "row_product.cuh"]
+    text += "".join((_build.CSRC / h).read_text() for h in headers)
     src = "\n".join(line.split("//")[0] for line in text.splitlines())
     assert 'extern "C" int crossbar_train_launch(' in src
     for banned in ("atomic", "cublas", "cutlass", "#include <torch"):
         assert banned not in src.lower(), banned
-    for needed in ("fmaf(", "__fdiv_rn(", "rintf(", "__fmul_rn(2.f, *lr)"):
+    for needed in ("fmaf(", "__fdiv_rn(", "rintf(", "__fmul_rn(2.f, *lr)",
+                   "outer_product::batch_walk<U, TD>",
+                   "row_product::dx_walk<R, TD>",
+                   "row_product::fwd_walk<R>"):
         assert needed in src, needed
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     head = src.split('extern "C" int crossbar_train_launch(')[1]
-    # the 20 argtypes _launch_fn declares: 4 pointers, d_kind, 6 pointers,
-    # T, M, K, N, compute_y, unit, levels, w_max, stream
-    assert head.split(")")[0].count(",") + 1 == 20
+    # the 22 argtypes _launch_fn declares: 4 pointers, d_kind, 6 pointers,
+    # T, M, K, N, compute_y, tile, dx_run, unit, levels, w_max, stream
+    assert head.split(")")[0].count(",") + 1 == 22
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's training step of several trees in one call on one card.
+"""Time the port's training step of several trees in one call on one card,
+and hold their outputs against each other bit for bit.
 
   python3 tools/torch_step_ab.py PARENT . . PARENT
 
@@ -11,8 +12,13 @@ crossbar kernels of that tree, makes mnist_class and isolet_class chips
 with seed 0, and prints one JSON line: the eager and the compiled
 ``train_step`` times (CUDA events over 10 steps after 3 of warm-up; mnist
 at batch 4096, isolet at 256) and the eager mnist step's device busy time
-and idle share under ``torch.profiler``.  The card's name and power limit
-come first.  Needs a CUDA card and the CUDA toolkit.
+and idle share under ``torch.profiler``.  Each tree also computes, on
+inputs drawn from seed 1, the mnist_class wave at 4096 samples on a
+compiled and on an eager chip and the conductances after one compiled
+step at batch 4096 from seed 0; the last line holds every tree's outputs
+against the first tree's: equal, up to the sign of a zero (``==``, so
+-0.0 equals 0.0, and no NaN).  The card's name and power limit come first.
+Needs a CUDA card and the CUDA toolkit; exits 1 if the outputs differ.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 KERNELS = ["crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
            "crossbar_train"]
@@ -62,13 +69,35 @@ def busy(fn, reps: int = 3) -> dict:
             "device_idle_share": 1.0 - device / span}
 
 
-def one(root: pathlib.Path) -> dict:
+def outputs(build_chip) -> dict:
+    """The mnist_class wave at 4096 samples, compiled and eager, and the
+    conductances after one compiled step at batch 4096 (inputs from seed
+    1, chips from seed 0)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand((4096, 784), generator=gen, device="cuda") - 0.5
+    t = torch.rand((4096, 10), generator=gen, device="cuda") - 0.5
+    out = {}
+    for mode in ("compiled", "eager"):
+        chip = build_chip("mnist_class", seed=0, device="cuda",
+                          compiled=mode == "compiled")
+        out[f"{mode} wave"] = chip.infer(x, count=False).cpu()
+    chip = build_chip("mnist_class", seed=0, device="cuda", compiled=True)
+    chip.train_step(x, t, lr=0.1)
+    for i, layer in enumerate(chip.layers()):
+        for name, g in layer.items():
+            out[f"compiled step layer {i} {name}"] = g.cpu()
+    return out
+
+
+def one(root: pathlib.Path, save: pathlib.Path) -> dict:
     sys.path.insert(0, str(root / "src"))
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch.chipsim import build_chip
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_all(KERNELS)
+    torch.save(outputs(build_chip), save)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def uniform(shape):
@@ -89,9 +118,27 @@ def one(root: pathlib.Path) -> dict:
     return out
 
 
+def compare(saved: list[pathlib.Path], roots: list[str]) -> dict:
+    """Every later tree's outputs against the first tree's, by position and
+    name: equal up to the sign of a zero; the count of values that differ
+    otherwise."""
+    import torch
+    first = torch.load(saved[0])
+    result = {}
+    for i, (path, root) in enumerate(zip(saved[1:], roots[1:]), 1):
+        other = torch.load(path)
+        differ = {k: int((~(other[k] == v)).sum()) for k, v in first.items()}
+        result[f"{i} {root}"] = {
+            "equal": not any(differ.values()),
+            "values differing": {k: n for k, n in differ.items() if n}}
+    return {"against": f"0 {roots[0]}", "outputs": sorted(first),
+            "trees": result}
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(pathlib.Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(one(pathlib.Path(argv[1]).resolve(),
+                             pathlib.Path(argv[2]))), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -99,11 +146,16 @@ def main(argv: list[str]) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", root])
-        if proc.returncode != 0:
-            return proc.returncode
-    return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = [pathlib.Path(tmp) / f"{i}.pt" for i in range(len(argv))]
+        for root, save in zip(argv, saved):
+            proc = subprocess.run([sys.executable, __file__, "--one", root,
+                                   str(save)])
+            if proc.returncode != 0:
+                return proc.returncode
+        result = compare(saved, argv)
+    print(json.dumps(result), flush=True)
+    return 0 if all(r["equal"] for r in result["trees"].values()) else 1
 
 
 if __name__ == "__main__":
