@@ -15,9 +15,10 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    source, all started together; dw, pulse and the fused kernel's update
    blocks share the batch walk of ``outer_product.cuh``, the forward and
    the fused kernel's dx and y blocks the register-tiled walks of
-   ``row_product.cuh``) and prints the build time and ptxas'
-   register/spill report, and per dw, pulse, forward and fused instance
-   its registers, spills and shared memory (a spill fails the run);
+   ``row_product.cuh``, which the error backprop's two walks share) and
+   prints the build time and ptxas' register/spill report, and per dw,
+   pulse, forward, fused, bwd and k-means instance its registers, spills
+   and shared memory (a spill fails the run);
 3. kernel phases: hold each CUDA kernel against its plain PyTorch version
    on the card — the forward at every mnist_class and isolet_class
    recognition stage shape (M = 16 and 4096), a ragged shape, a chip-axis
@@ -48,13 +49,25 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    layers with the activation and 3-bit ADC epilogue (M = 16, 4096; N = 10
    included) and ragged and unaligned operands, and a sweep of every
    forward tile's device time at one mnist wave (M = 4096), one isolet wave
-   (M = 256) and mnist's layers beside the pick; and the k-means
+   (M = 256) and mnist's layers beside the pick; every tile of
+   ``CROSSBAR_BWD_TILES`` (runs 1 and 3 where N <= 128) equal to the
+   picked bwd launch, bit for bit, at every training stage stack (M = 1,
+   64, 4096), mnist's four layers (M = 64, 4096; N = 300 and 200 through
+   the ring walk), the ragged (3, 37, 300, 26), unaligned operands and a
+   chip-axis case, on fp32 errors and int8 and int32 codes (codes equal to
+   their values), the fused kernel's dx equal to the bwd launch on the same
+   codes, and a sweep of every bwd tile and run's device time at one mnist
+   step's stacks (M = 4096), isolet's (M = 256) and mnist's layers on int8
+   codes (M = 64, 4096) beside ``torch.bmm`` and the pick; and the k-means
    assignment kernel at the clustering
    path's shape (n = 2048, d = 20, k = 10), n = 60000, k = 26, the
    hardware core's 32 x 32,
    the TPU tile limit 128 x 128 (n = 65536), a ragged n, k = 1 and
-   duplicated centers (exact ties go to the lowest index), timed beside its
-   plain version, ``torch.cdist(p=1).argmin`` and the bound; and the flash
+   duplicated centers (exact ties go to the lowest index), every tile of
+   ``KMEANS_TILES`` equal to the chain-order plain version exactly, timed
+   (and every tile by device time) beside its plain version,
+   ``torch.cdist(p=1).argmin`` and the bound; both wrappers' host time (CUDA
+   events against device time, and a host clock per call); and the flash
    attention kernels at qwen2-0.5b's prefill shape (B=4, S=2048, 14 heads
    on 2, hd 64) in bf16 and fp32, the yi-6b head shape (1, 4096, 32 on 4,
    hd 128), a ragged S = 1000, non-causal 384, MHA, the reference test's
@@ -154,9 +167,11 @@ only the samples downstream of such a flip may differ end to end.  Pulse
 counts may differ by one only where the plain unrounded count lies within
 1e-4 of a half-integer; there a conductance may differ by one half pulse
 (u/2 = 1.95e-4), everywhere else by at most 1e-6.  The fused kernel and
-the four-call sequence must agree exactly.  k-means assignments are
-equal, except where the two smallest distances of a sample (recomputed in
-float64) lie within 1e-5 relative of each other.  Flash attention in
+the four-call sequence must agree exactly, as must every bwd tile and
+run with the picked one.  k-means assignments equal the chain-order plain
+version exactly, and the plain version except where the two smallest
+distances of a sample (recomputed in float64) lie within 1e-5 relative of
+each other.  Flash attention in
 fp32 within 2e-5 absolute plus relative (the reference's kernel bar); in
 bf16, the Pallas function within one bf16 step of the plain result (the
 spacing of bf16 at the larger magnitude, plus 1e-6: both sides round an
@@ -496,15 +511,22 @@ def train_kernel_phase(xbk, ops, gen) -> tuple[dict, list[dict]]:
             float((a - b).abs().max()) for a, b in zip(new, want)))
         if M == 4096 and not lead and not case.get("codes"):
             rows += time_train_shape(xbk, xs, ds, gp, gm, rule)
-    for K, N in MNIST_LAYERS:   # crossbar_apply's dw shapes, int8 codes
+    for K, N in MNIST_LAYERS:   # crossbar_apply's shapes, int8 codes
         xs = uniform((1, 4096, K), -0.5, 0.5, gen)
         codes = torch.randint(-127, 128, (1, 4096, N), generator=gen,
                               dtype=torch.int8, device="cuda")
         scale = torch.tensor(0.05 / 127, device="cuda")
+        gp = uniform((1, K, N), 0.3, 0.7, gen)
+        gm = uniform((1, K, N), 0.3, 0.7, gen)
         close(xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale),
               xbk.crossbar_dw_plain(xs, codes, dy_scale=scale),
               f"dw codes (1, 4096, {K}, {N})")
+        max_err["crossbar_bwd"] = max(max_err["crossbar_bwd"], close(
+            xbk.crossbar_bwd_kernel(codes, gp, gm, dy_scale=scale),
+            xbk.crossbar_bwd_plain(codes, gp, gm, dy_scale=scale),
+            f"bwd codes (1, 4096, {K}, {N})"))
         rows.append(time_dw_codes(xbk, xs, codes, scale))
+        rows.append(time_bwd_codes(xbk, codes, scale, gp, gm))
     print(f"train kernel phase: {len(cases) + len(MNIST_LAYERS)} cases, max "
           f"|kernel - plain| " + json.dumps(max_err) + f" (atol {ATOL} + "
           f"rtol {ATOL}; pulse: conductances), {flips} pulse counts one "
@@ -534,7 +556,8 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
             "plain_ms": lambda: xbk.crossbar_bwd_plain(ds, gp, gm),
             "library_ms": lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)),
         }), lambda: xbk.crossbar_bwd_kernel(ds, gp, gm),
-            lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)), None),
+            lambda: torch.bmm(ds, (gp - gm).transpose(1, 2)),
+            "/".join(map(str, xbk._pick_bwd(None, None, T, M, K, N, 4)))),
         with_device_ms(time_row("crossbar_dw", T, M, K, N, {
             "ms": lambda: xbk.crossbar_dw_kernel(xs, ds),
             "plain_ms": lambda: xbk.crossbar_dw_plain(xs, ds),
@@ -552,9 +575,9 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
     ]
 
 
-def with_device_ms(row: dict, kernel, library, tile: int | None) -> dict:
+def with_device_ms(row: dict, kernel, library, tile) -> dict:
     """Add the kernel's and the library call's device times (``graph_ms``)
-    and the tile the wrapper picked (where it picks one) to a row."""
+    and the tile the wrapper picked (bwd: "tile/run") to a row."""
     row.update(ms_device=graph_ms(kernel),
                library_ms_device=graph_ms(library))
     if tile is not None:
@@ -575,6 +598,21 @@ def time_dw_codes(xbk, xs, codes, scale) -> dict:
         lambda: xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale),
         lambda: torch.bmm(xs.transpose(1, 2), dys),
         xbk.outer_product_tile(T, M, K, N, 1))
+
+
+def time_bwd_codes(xbk, codes, scale, gp, gm) -> dict:
+    T, M, N = codes.shape
+    K = gp.shape[1]
+    dys = codes.float() * scale
+    return with_device_ms(time_row("crossbar_bwd", T, M, K, N, {
+        "ms": lambda: xbk.crossbar_bwd_kernel(codes, gp, gm, dy_scale=scale),
+        "plain_ms": lambda: xbk.crossbar_bwd_plain(codes, gp, gm,
+                                                   dy_scale=scale),
+        "library_ms": lambda: torch.bmm(dys, (gp - gm).transpose(1, 2)),
+    }, dy_bytes=1, codes="int8"),
+        lambda: xbk.crossbar_bwd_kernel(codes, gp, gm, dy_scale=scale),
+        lambda: torch.bmm(dys, (gp - gm).transpose(1, 2)),
+        "/".join(map(str, xbk._pick_bwd(None, None, T, M, K, N, 1))))
 
 
 def outer_product_cases() -> list[tuple[int, int, int, int]]:
@@ -810,6 +848,124 @@ def fwd_tile_sweep(xbk, gen) -> list[dict]:
     return rows
 
 
+def bwd_pin_cases() -> list[dict]:
+    """Cases of the bwd tile pins: every training stage stack at M = 1, 64
+    and 4096; mnist's four layers (crossbar_apply's; N = 300 and 200 go
+    through the ring walk) at M = 64 and 4096; the ragged (3, 37, 300,
+    26); operands whose addresses are not 16-byte aligned (cp.async paths,
+    the ring walk's among them); a chip-axis case.  ``codes``: also int8
+    and int32 error codes."""
+    stacks = sorted({s for v in TRAIN_SHAPES.values() for s in v})
+    cases = [dict(shape=(T, M, K, N)) for T, K, N in stacks
+             for M in (1, 64, 4096)]
+    cases += [dict(shape=(1, M, K, N), codes=True) for K, N in MNIST_LAYERS
+              for M in (64, 4096)]
+    cases += [dict(shape=(3, 37, 300, 26), codes=True),
+              dict(shape=(6, 64, 400, 100), codes=True),
+              dict(shape=(3, 37, 300, 26), offset=1, codes=True),
+              dict(shape=(2, 70, 17, 9), offset=3, codes=True),
+              dict(shape=(2, 33, 150, 301), offset=2, codes=True),
+              dict(shape=(3, 7, 45, 13), chips=2, codes=True)]
+    return cases
+
+
+def bwd_pin_phase(xbk, ops, gen) -> int:
+    """Every tile of ``CROSSBAR_BWD_TILES``, at runs 1 and 3 where N <= 128,
+    gives the picked launch's bits at every ``bwd_pin_cases`` case, for
+    fp32 errors and, where marked, int8 and int32 codes; codes give the
+    bits of their values (``codes.float() * scale``); the picked launch is
+    held against the plain version.  Returns the (case, error type, tile,
+    run) launches pinned.  Launches here are not counted."""
+    scale = torch.tensor(0.05 / 127, device="cuda")
+    pins = 0
+    for case in bwd_pin_cases():
+        T, M, K, N = case["shape"]
+        lead = (case["chips"],) if "chips" in case else ()
+        off = case.get("offset", 0)
+        d = uniform(lead + (T, M, N), -0.05, 0.05, gen)
+        gp = uniform(lead + (T, K, N), 0.3, 0.7, gen)
+        gm = uniform(lead + (T, K, N), 0.3, 0.7, gen)
+        c8 = torch.randint(-127, 128, lead + (T, M, N), generator=gen,
+                           dtype=torch.int8, device="cuda")
+        c32 = c8.to(torch.int32)
+        if off:
+            d, gp, gm, c32 = (offset_copy(a, off) for a in (d, gp, gm, c32))
+            c8 = offset_copy(c8, 5 * off)
+        kinds = {"fp32": (d, None)}
+        if case.get("codes"):
+            kinds.update(int8=(c8, scale), int32=(c32, scale))
+        for kind, (dd, sc) in kinds.items():
+            what = f"bwd {case} {kind}"
+            g_p, g_m = gp, gm
+            if lead:   # through the stacked wrapper's chip-axis fold
+                ref = ops.crossbar_bwd_stacked(dd, g_p, g_m, dy_scale=sc)
+                ref, dd, g_p, g_m = (a.reshape((-1,) + a.shape[2:])
+                                     for a in (ref, dd, g_p, g_m))
+            else:
+                ref = xbk.crossbar_bwd_kernel(dd, g_p, g_m, dy_scale=sc)
+            close(ref, xbk.crossbar_bwd_plain(dd, g_p, g_m, dy_scale=sc),
+                  what)
+            if sc is not None and not torch.equal(
+                    ref, xbk.crossbar_bwd_kernel(dd.float() * sc, g_p, g_m)):
+                raise AssertionError(f"{what}: codes vs their values")
+            runs = (1, 3) if N <= xbk.MAX_N_DX_WALK else (1,)
+            for t in range(len(xbk.CROSSBAR_BWD_TILES)):
+                for r in runs:
+                    got = xbk.crossbar_bwd_kernel(dd, g_p, g_m, dy_scale=sc,
+                                                  tile=t, run=r)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{what}: tile {t} run {r} vs "
+                                             f"the picked launch, "
+                                             f"{differing(got, ref)}")
+                    pins += 1
+    torch.cuda.synchronize()
+    print(f"bwd pins: every tile (runs 1 and 3 where N <= 128) == the "
+          f"picked launch, bit for bit, at {pins} (case, error type, tile, "
+          f"run) launches ({len(bwd_pin_cases())} cases); codes == their "
+          f"values; the pick within {ATOL} of plain")
+    return pins
+
+
+def bwd_tile_sweep(xbk, gen) -> list[dict]:
+    """Device time (``graph_ms``) of every bwd tile and run at the main
+    paths' bwd launches: one eager mnist step's stacks at M = 4096 (fp32),
+    isolet's at M = 256 and crossbar_apply's four mnist layers on int8
+    codes at M = 64 and 4096; beside ``torch.bmm`` of the same contraction
+    (on the dequantized errors) and the picked tile and run."""
+    scale = torch.tensor(0.05 / 127, device="cuda")
+    shapes = [(T, M, K, N, False) for app, M in (("mnist_class", 4096),
+                                                 ("isolet_class", 256))
+              for T, K, N in dict.fromkeys(TRAIN_SHAPES[app])]
+    shapes += [(1, M, K, N, True) for M in (64, 4096)
+               for K, N in MNIST_LAYERS]
+    rows = []
+    for T, M, K, N, codes in shapes:
+        gp = uniform((T, K, N), 0.3, 0.7, gen)
+        gm = uniform((T, K, N), 0.3, 0.7, gen)
+        if codes:
+            d = torch.randint(-127, 128, (T, M, N), generator=gen,
+                              dtype=torch.int8, device="cuda")
+            sc, dv = scale, d.float() * scale
+        else:
+            d = dv = uniform((T, M, N), -0.05, 0.05, gen)
+            sc = None
+        runs = (1, 2, 3, 4, 6, 8) if N <= xbk.MAX_N_DX_WALK else (1,)
+        ms = {f"{t}/{r}": round(graph_ms(lambda: xbk.crossbar_bwd_kernel(
+            d, gp, gm, dy_scale=sc, tile=t, run=r)), 5)
+            for t in range(len(xbk.CROSSBAR_BWD_TILES)) for r in runs}
+        tile, run = xbk._pick_bwd(None, None, T, M, K, N, d.element_size())
+        rows.append({"kernel": "crossbar_bwd", "T": T, "M": M, "K": K,
+                     "N": N, "codes": "int8" if codes else None,
+                     "picked": f"{tile}/{run}",
+                     "picked_ms": graph_ms(lambda: xbk.crossbar_bwd_kernel(
+                         d, gp, gm, dy_scale=sc)),
+                     "best": min(ms, key=ms.get),
+                     "bmm_ms": graph_ms(lambda: torch.bmm(
+                         dv, (gp - gm).transpose(1, 2))),
+                     "ms_by_tile_run": ms})
+    return rows
+
+
 def row_product_ptxas(report: dict[str, dict]) -> dict[str, list]:
     """Registers, spill bytes (stores + loads) and dynamic shared memory of
     every forward instance (by ROW_PRODUCT_TILES index) and every fused
@@ -902,6 +1058,59 @@ def outer_product_ptxas(report: dict[str, dict]) -> dict[str, list]:
     return dict(sorted(out.items()))
 
 
+def bwd_ptxas(report: dict[str, dict]) -> dict[str, list]:
+    """Registers, spill bytes (stores + loads) and dynamic shared memory of
+    every bwd instance, by CROSSBAR_BWD_TILES index, error type and walk
+    (dx_walk's shared memory at N = 100, the chip stages'; the ring walk's
+    for any N > 128); raises on a spill."""
+    import re
+    from repro_torch.kernels import crossbar as xbk
+    pat = re.compile(r"crossbar_bwdIN11row_product4Tile"
+                     + r"ELi".join([r"ILi(\d+)"] + [r"(\d+)"] * 5)
+                     + r"EEE([afi])Lb([01])E")
+    out = {}
+    for key, v in report.items():
+        m = pat.search(key)
+        if not m:
+            continue
+        tile = xbk.CROSSBAR_BWD_TILES.index(tuple(map(int, m.groups()[:6])))
+        td = {"f": "f32", "a": "int8", "i": "int32"}[m.group(7)]
+        ring = m.group(8) == "1"
+        spills = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+        if spills:
+            raise AssertionError(f"{key}: {spills} bytes of register spills")
+        out[f"crossbar_bwd[{tile}] {td} {'ring' if ring else 'dx_walk'}"] = [
+            v.get("registers"), spills,
+            xbk.bwd_smem(tile, 300 if ring else 100,
+                         1 if td == "int8" else 4)]
+    if len(out) != 6 * len(xbk.CROSSBAR_BWD_TILES):
+        raise AssertionError(f"ptxas report: {len(out)} bwd instances")
+    return dict(sorted(out.items()))
+
+
+def kmeans_ptxas(report: dict[str, dict]) -> dict[str, list]:
+    """Registers, spill bytes and dynamic shared memory of every k-means
+    instance, by KMEANS_TILES index; raises on a spill."""
+    import re
+    from repro_torch.kernels import kmeans as kmk
+    pat = re.compile(r"kmeans_assignINS_5KTileILi(\d+)ELi(\d+)ELi(\d+)"
+                     r"ELi(\d+)E")
+    out = {}
+    for key, v in report.items():
+        m = pat.search(key)
+        if not m:
+            continue
+        tile = kmk.KMEANS_TILES.index(tuple(map(int, m.groups())))
+        spills = v.get("spill_stores", 0) + v.get("spill_loads", 0)
+        if spills:
+            raise AssertionError(f"{key}: {spills} bytes of register spills")
+        out[f"kmeans_assign[{tile}]"] = [v.get("registers"), spills,
+                                         kmk.kmeans_smem(tile)]
+    if len(out) != len(kmk.KMEANS_TILES):
+        raise AssertionError(f"ptxas report: {len(out)} k-means instances")
+    return dict(sorted(out.items()))
+
+
 def fused_kernel_cases() -> list[dict]:
     """Fused-kernel cases: every training stage stack at M = 1, 64, 4096,
     and tests/test_compiled_step.py's megakernel shapes (ragged stacks with
@@ -972,6 +1181,11 @@ def fused_kernel_phase(xbk, ops, gen) -> tuple[float, list[dict]]:
             if not torch.equal(a, b):
                 raise AssertionError(f"{what}: {name} differs from the "
                                      f"four-call sequence")
+        if scale is not None:   # the picked bwd launch on the codes
+            dxc = xbk.crossbar_bwd_kernel(dys, gp, gm, dy_scale=scale)
+            if not torch.equal(dxc, got[1]):
+                raise AssertionError(f"{what}: dxs differs from the bwd "
+                                     f"kernel on the codes")
         for name, a, b in (("in-place dxs", dxi, four[1]),
                            ("in-place g+", gpi, four[2]),
                            ("in-place g-", gmi, four[3])):
@@ -1748,12 +1962,16 @@ def near_tie_flips(x, c, got, want, what) -> int:
     return int(off.numel())
 
 
-def kmeans_kernel_phase(kmk, gen) -> tuple[int, list[dict]]:
-    """The k-means kernel against its plain version at KMEANS_CASES, timed
-    (CUDA events, and its device time under the profiler) beside the plain
-    version, ``torch.cdist(p=1).argmin`` and the bound; returns (near-tie
-    flips, rows).  Launches here are not counted."""
-    flips, rows = 0, []
+def kmeans_kernel_phase(kmk, ops, gen) -> tuple[int, list[dict]]:
+    """The k-means kernel at KMEANS_CASES: every tile of ``KMEANS_TILES``
+    equal to the chain-order plain version (``kmeans_assign_chain``, the
+    kernel's own sums) exactly, the picked tile against
+    ``kmeans_assign_plain`` except at near-ties; timed through
+    ``ops.kmeans_assign`` by CUDA events and by device time (``graph_ms``)
+    beside the plain version, ``torch.cdist(p=1).argmin`` and the bound,
+    with every tile's device time.  Returns (near-tie flips, rows).
+    Launches here are not counted."""
+    flips, rows, pins = 0, [], 0
     for n, d, k, what in KMEANS_CASES:
         x = uniform((n, d), -0.5, 0.5, gen)
         if what.startswith("duplicated"):
@@ -1762,10 +1980,18 @@ def kmeans_kernel_phase(kmk, gen) -> tuple[int, list[dict]]:
             c = uniform((k, d), -0.5, 0.5, gen)
         got = kmk.kmeans_assign_kernel(x, c)
         want = kmk.kmeans_assign_plain(x, c)
+        chain = kmk.kmeans_assign_chain(x, c)
         torch.cuda.synchronize()
         if got.dtype != torch.int32 or got.shape != (n,):
             raise AssertionError(f"kmeans_assign {what}: {got.dtype} "
                                  f"{tuple(got.shape)}")
+        for t in range(len(kmk.KMEANS_TILES)):
+            a = kmk.kmeans_assign_kernel(x, c, tile=t)
+            if not torch.equal(a, chain):
+                raise AssertionError(f"kmeans_assign {what}: tile {t} vs the "
+                                     f"chain-order plain version, "
+                                     f"{differing(a, chain)}")
+            pins += 1
         case_flips = near_tie_flips(x, c, got, want,
                                     f"kmeans_assign {what}")
         if what.startswith("duplicated") and bool((got >= 10).any()):
@@ -1775,23 +2001,76 @@ def kmeans_kernel_phase(kmk, gen) -> tuple[int, list[dict]]:
             raise AssertionError("kmeans_assign: k = 1 gave a nonzero index")
         flips += case_flips
         op_ms, byte_ms = kmeans_bound(n, d, k)
+        by_tile = [round(graph_ms(lambda: kmk.kmeans_assign_kernel(
+            x, c, tile=t)), 5) for t in range(len(kmk.KMEANS_TILES))]
         rows.append({
             "kernel": "kmeans_assign", "n": n, "d": d, "k": k, "case": what,
-            "near_tie_flips": case_flips,
-            "ms": cuda_ms(lambda: kmk.kmeans_assign_kernel(x, c)),
-            "device_ms": next(
-                t["ms"] for t in profile_device(
-                    lambda: kmk.kmeans_assign_kernel(x, c), reps=20)["top"]
-                if "kmeans_assign" in t["kernel"]),
+            "near_tie_flips": case_flips, "tile": kmk.kmeans_tile(n, d, k),
+            "ms": cuda_ms(lambda: ops.kmeans_assign(x, c), iters=200),
+            "ms_device": graph_ms(lambda: ops.kmeans_assign(x, c)),
             "plain_ms": cuda_ms(lambda: kmk.kmeans_assign_plain(x, c)),
             "library_ms": cuda_ms(
                 lambda: torch.cdist(x, c, p=1).argmin(1)),
+            "library_ms_device": graph_ms(
+                lambda: torch.cdist(x, c, p=1).argmin(1)),
             "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes"})
-    print(f"kmeans kernel phase: {len(KMEANS_CASES)} cases, assignments "
-          f"equal to plain except {flips} near-tie flips (two distances "
-          f"within {NEAR_TIE} relative); exact ties to the lowest index")
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "ms_device_by_tile": by_tile})
+    print(f"kmeans kernel phase: {len(KMEANS_CASES)} cases, every tile "
+          f"equal to the chain-order plain version ({pins} (case, tile) "
+          f"pairs); the pick equal to plain except {flips} near-tie flips "
+          f"(two distances within {NEAR_TIE} relative); exact ties to the "
+          f"lowest index")
     return flips, rows
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Host time per call of ``fn`` in microseconds: a host clock around
+    ``calls`` calls that do not wait for the card (at a shape the card
+    finishes sooner, the enqueue is what is timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def wrapper_host_phase(xbk, ops, gen) -> dict:
+    """The bwd and k-means wrappers (``ops.crossbar_bwd_stacked``,
+    ``ops.kmeans_assign``) by CUDA events against device time: the eager
+    mnist step's four bwd stacks at M = 4096 and the clustering path's
+    (2048, 20, 10); and each wrapper's host time per call at a shape the
+    card finishes sooner ((1, 64, 400, 100); (2048, 20, 10))."""
+    out = {"bwd mnist step 4 stacks events ms": 0.0,
+           "bwd mnist step 4 stacks device ms": 0.0}
+    for T, K, N in TRAIN_SHAPES["mnist_class"]:
+        d = uniform((T, 4096, N), -0.05, 0.05, gen)
+        gp = uniform((T, K, N), 0.3, 0.7, gen)
+        gm = uniform((T, K, N), 0.3, 0.7, gen)
+        out["bwd mnist step 4 stacks events ms"] += cuda_ms(
+            lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+        out["bwd mnist step 4 stacks device ms"] += graph_ms(
+            lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+    d = uniform((1, 64, 100), -0.05, 0.05, gen)
+    gp = uniform((1, 400, 100), 0.3, 0.7, gen)
+    gm = uniform((1, 400, 100), 0.3, 0.7, gen)
+    out["bwd (1, 64, 400, 100) events us"] = 1e3 * cuda_ms(
+        lambda: ops.crossbar_bwd_stacked(d, gp, gm), iters=200)
+    out["bwd (1, 64, 400, 100) device us"] = 1e3 * graph_ms(
+        lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+    out["bwd host us per call"] = host_us(
+        lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+    x, c = uniform((2048, 20), -0.5, 0.5, gen), uniform((10, 20), -0.5, 0.5,
+                                                        gen)
+    out["kmeans (2048, 20, 10) events us"] = 1e3 * cuda_ms(
+        lambda: ops.kmeans_assign(x, c), iters=200)
+    out["kmeans (2048, 20, 10) device us"] = 1e3 * graph_ms(
+        lambda: ops.kmeans_assign(x, c))
+    out["kmeans host us per call"] = host_us(lambda: ops.kmeans_assign(x, c))
+    return out
 
 
 def purity(assign: torch.Tensor, labels: torch.Tensor, k: int) -> float:
@@ -2535,6 +2814,10 @@ def main() -> int:
     print("ptxas, forward and fused instances [registers, spill bytes, "
           "dynamic shared memory (fused: N = 100, forward off)]: "
           + json.dumps(row_product_ptxas(report)))
+    print("ptxas, bwd instances [registers, spill bytes, dynamic shared "
+          "memory (dx_walk: N = 100)]: " + json.dumps(bwd_ptxas(report)))
+    print("ptxas, k-means instances [registers, spill bytes, dynamic shared "
+          "memory]: " + json.dumps(kmeans_ptxas(report)))
 
     phase_s = {"build": time.perf_counter() - t0}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2547,10 +2830,15 @@ def main() -> int:
     pins["fwd tiles"] = row_product_phase(xbk, gen)
     print(f"forward device ms by tile [{card}]: "
           + json.dumps(fwd_tile_sweep(xbk, gen)))
+    pins["bwd tiles"] = bwd_pin_phase(xbk, ops, gen)
+    print(f"bwd device ms by tile/run [{card}]: "
+          + json.dumps(bwd_tile_sweep(xbk, gen)))
     fused_err, fused_rows = fused_kernel_phase(xbk, ops, gen)
     phase_s["kernel phases"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    km_flips, km_rows = kmeans_kernel_phase(kmk, gen)
+    km_flips, km_rows = kmeans_kernel_phase(kmk, ops, gen)
+    host = wrapper_host_phase(xbk, ops, gen)
+    print(f"wrapper host time [{card}]: " + json.dumps(host))
     phase_s["kmeans kernel phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fa_err, fa_rows = flash_kernel_phase(fak, ops, gen, report)
@@ -2709,7 +2997,8 @@ def main() -> int:
         "pulse_update": (step_rows(train_rows, "pulse_update"),
                          "the 4 launches of one eager mnist_class training "
                          "step at M=4096"),
-        "crossbar_dw": ([r for r in train_rows if r.get("codes")],
+        "crossbar_dw": ([r for r in train_rows if r.get("codes")
+                         and r["kernel"] == "crossbar_dw"],
                         "the 4 launches of crossbar_apply(use_kernel=True)'s "
                         "backward through mnist's layers at M=4096, int8 "
                         "codes"),
@@ -2764,15 +3053,23 @@ def main() -> int:
             ms_device_per_launch=[r["ms_device"] for r in timed],
             library_ms_device_per_launch=[r["library_ms_device"]
                                           for r in timed])
-        if name != "crossbar_bwd":
-            entries[-1]["timed"] += (
-                "; tiles: the ROW_PRODUCT_TILES (fwd) or "
-                "OUTER_PRODUCT_TILES (dw, pulse, the fused kernel's update "
-                "walk) index each launch took; bit_pins: shapes of pins (a) "
-                "and (b), (kernel, shape, tile) triples of dw and pulse and "
-                "(shape, tile) pairs of fwd equal to the picked tile")
-            entries[-1].update(tiles=[r["tile"] for r in timed],
-                               bit_pins=pins)
+        entries[-1]["timed"] += (
+            "; tiles: the ROW_PRODUCT_TILES (fwd), CROSSBAR_BWD_TILES "
+            "\"tile/run\" (bwd) or OUTER_PRODUCT_TILES (dw, pulse, the "
+            "fused kernel's update walk) index each launch took; bit_pins: "
+            "shapes of pins (a) and (b), (kernel, shape, tile) triples of dw "
+            "and pulse, (shape, tile) pairs of fwd and (case, error type, "
+            "tile, run) launches of bwd equal to the picked launch")
+        entries[-1].update(tiles=[r["tile"] for r in timed], bit_pins=pins)
+        if name == "crossbar_bwd":
+            entries[-1]["host"] = {k: v for k, v in host.items()
+                                   if k.startswith("bwd")}
+            entries[-1]["apply_layers_int8"] = [
+                {k: r[k] for k in ("K", "N", "ms", "ms_device", "plain_ms",
+                                   "library_ms", "library_ms_device",
+                                   "bound_ms", "tile")}
+                for r in train_rows
+                if r["kernel"] == "crossbar_bwd" and r.get("codes")]
         if name == "crossbar_train":
             entries[-1]["dx_runs"] = [r["dx_run"] for r in timed]
     next(e for e in entries if e["name"] == "crossbar_dw")[
@@ -2787,10 +3084,17 @@ def main() -> int:
         "max_abs_err": km_flips + apps["near_tie_flips"],
         "ms": km["ms"], "plain_ms": km["plain_ms"],
         "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
-        "library_ms": km["library_ms"],
-        "timed": "one launch at the clustering path's shape (n=2048, "
-                 "d=20, k=10); max_abs_err counts assignments that "
-                 "differ from plain (near-ties only)"})
+        "library_ms": km["library_ms"], "ms_device": km["ms_device"],
+        "library_ms_device": km["library_ms_device"], "tile": km["tile"],
+        "ms_device_at_65536x128x128": next(
+            r["ms_device"] for r in km_rows if r["d"] == r["k"] == 128),
+        "host": {k: v for k, v in host.items() if k.startswith("kmeans")},
+        "timed": "one ops.kmeans_assign call at the clustering path's "
+                 "shape (n=2048, d=20, k=10), by CUDA events (host "
+                 "included) and by device time (ms_device: a CUDA graph of "
+                 "20 calls replayed); max_abs_err counts assignments that "
+                 "differ from plain (near-ties only; every tile equals the "
+                 "chain-order plain version exactly)"})
     def fa_row(dt, sem):    # the prefill path's own shape
         return next(r for r in fa_rows if r["case"].startswith(
             "qwen2-0.5b prefill") and r["dtype"] == dt

@@ -44,8 +44,8 @@ from repro_torch.core.quantization import device_constant
 
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y / gridDim.z
 MAX_GRID_X = 2 ** 31 - 1  # ... and on gridDim.x
-BLOCK_M = 64             # bwd: samples per block (BM in the source)
 MAX_N_TRAIN = 128        # fused kernel: columns a dx block holds in B
+MAX_N_DX_WALK = 128      # bwd: above, the kernel rings N (dx_ring_walk)
 DX_RUN = 8               # fused kernel: row tiles a dx block walks at most
 # dy element types the bwd and dw kernels read (dy_kind in the sources)
 _DY_KINDS = {torch.float32: 0, torch.int8: 1, torch.int32: 2}
@@ -68,6 +68,15 @@ ROW_PRODUCT_TILES = ((8, 4, 25, 6, 32, 3),    # 48 x 100: many outputs
                      (8, 4, 25, 8, 32, 3),    # 64 x 100: a grid of ~128
                      (4, 4, 8, 16, 32, 4),    # 64 x 32: few outputs
                      (4, 4, 4, 16, 32, 4))    # 64 x 16: N <= 16
+# The tiles of the error-backprop kernel, by index: csrc/crossbar_bwd.cu's
+# CROSSBAR_BWD_TILES, laid out as ROW_PRODUCT_TILES: BM = TM NTM rows and
+# BC = TC NTC columns of dx a block; BR lines a ring stage where N > 128
+# (at N <= 128 a stage is a whole row tile), S stages.
+CROSSBAR_BWD_TILES = ((4, 4, 8, 16, 32, 2),   # 64 x 32: most launches
+                      (4, 4, 8, 16, 32, 3),   # fp32 rings (N > 128)
+                      (4, 4, 8, 8, 32, 3))    # 32 x 32: few outputs
+BWD_RUN = 8              # bwd: row tiles a block walks at most (N <= 128)
+BWD_BLOCKS = 200         # bwd: the fewest blocks a run may leave
 
 
 def _adc_scale(adc_bits: int, adc_range: float) -> float:
@@ -133,6 +142,82 @@ def row_product_tile(T: int, M: int, K: int, N: int) -> int:
     if outputs >= 600_000:
         return 1
     return 2
+
+
+def bwd_tile_dims(tile: int) -> tuple[int, int]:
+    """(BM, BC): the rows and columns of dx one block of bwd ``tile``
+    holds."""
+    tm, tc, ntc, ntm, _, _ = CROSSBAR_BWD_TILES[tile]
+    return tm * ntm, tc * ntc
+
+
+def _r128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def bwd_smem(tile: int, N: int, d_bytes: int) -> int:
+    """Dynamic shared memory of a bwd block, as csrc/row_product.cuh sizes
+    it: at N <= 128 (dx_walk) B, N x (BC + 4) words of w^T, and S stages
+    of a whole row tile (BM rows at a pitch P >= N, P = 4 mod 8; int8 codes
+    also their 16-byte windows) and two mbarriers a stage; above
+    (dx_ring_walk) S stages of d (BM x (BR + 4) words), w^T (BR x BC), the
+    g+ and g- boxes (BC x (BR + 4) each) and int8 windows, and three
+    mbarriers a stage."""
+    tm, tc, ntc, ntm, br, stages = CROSSBAR_BWD_TILES[tile]
+    bm, bc = tm * ntm, tc * ntc
+    if N <= MAX_N_DX_WALK:
+        p = -(-N // 4) * 4
+        p += 0 if p // 4 % 2 else 4
+        stage = _r128(4 * bm * p)
+        if d_bytes == 1:
+            stage += _r128(bm * ((p + 15) // 16 * 16 + 16))
+        return _r128(4 * N * (bc + 4)) + stages * (stage + 16)
+    ap = br + 4
+    stage = _r128(4 * bm * ap) + _r128(4 * br * bc) + 2 * _r128(4 * bc * ap)
+    if d_bytes == 1:
+        stage += _r128(bm * ((br + 15) // 16 * 16 + 16))
+    return stages * (stage + 24)
+
+
+def bwd_tile(T: int, M: int, K: int, N: int, d_bytes: int = 4) -> int:
+    """The tile the error-backprop kernel takes for a (T, M, K, N) stack.
+
+    Every output is one thread's walk over all N lines.  4 x 4 register
+    tiles of 64 rows by 32 columns in two ring stages take every chip
+    stage; where N > 128 the ring walk prefers three stages for fp32
+    errors (int8 codes keep two: the producer dequantizes them); a small
+    output (crossbar_apply's layers at M = 64) takes 32-row blocks that
+    reach more SMs.  The choices come from chip_smoke.py's sweep of every
+    tile and run on an H100.  The summation order does not depend on the
+    tile."""
+    if T * M * K < 100_000:
+        return 2
+    return 1 if N > MAX_N_DX_WALK and d_bytes == 4 else 0
+
+
+def bwd_run(T: int, M: int, K: int, N: int, tile: int) -> int:
+    """Row tiles a block of bwd ``tile`` walks where N <= 128: the longest
+    run of 8, 4, 2 or 1 (at most the core's row tiles) that still leaves
+    BWD_BLOCKS blocks in the grid, split evenly over the core's row tiles
+    (1 above N = 128, where a block holds one row tile).  A run shares the
+    block's columns of w; too few blocks leave SMs idle."""
+    bm, bc = bwd_tile_dims(tile)
+    m_tiles = -(-M // bm)
+    if N > MAX_N_DX_WALK:
+        return 1
+    blocks = T * -(-K // bc)
+    run = next((r for r in (BWD_RUN, 4, 2)
+                if r <= m_tiles and blocks * -(-m_tiles // r) >= BWD_BLOCKS),
+               1)
+    return -(-m_tiles // -(-m_tiles // run))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(T: int, M: int, K: int, N: int, d_bytes: int
+              ) -> tuple[int, int]:
+    """The picked (tile, run) of a shape, computed once (host time)."""
+    tile = bwd_tile(T, M, K, N, d_bytes)
+    return tile, bwd_run(T, M, K, N, tile)
 
 
 def train_dx_run(M: int, tile: int) -> int:
@@ -298,7 +383,7 @@ def _launch_fn(name: str):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
         "crossbar_fwd": [ptr] * 4 + [i32] * 6 + [f32] * 2 + [i32, ptr],
-        "crossbar_bwd": [ptr, i32] + [ptr] * 4 + [i32] * 4 + [ptr],
+        "crossbar_bwd": [ptr, i32] + [ptr] * 4 + [i32] * 6 + [ptr],
         "crossbar_dw": [ptr, ptr, i32, ptr, ptr] + [i32] * 5 + [ptr],
         "pulse_update": [ptr] * 6 + [i32] * 4 + [f32] * 4 + [i32, ptr],
         "crossbar_train": ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 7
@@ -318,7 +403,7 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
         raise ValueError(f"{name} must be rank 3, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type != "cuda" or t.device != like.device:
+    if not t.is_cuda or t.get_device() != like.get_device():
         raise ValueError(f"{name} must lie on the first operand's CUDA "
                          f"device, got {t.device} (first on {like.device})")
 
@@ -338,24 +423,44 @@ def _check_grid(T: int, tiles_y: int, **dims: int) -> None:
 
 
 def _dy_kind(dys: torch.Tensor, dy_scale: torch.Tensor | None) -> int:
-    """The dy_kind of the sources; checks that codes come with a scale."""
-    _check_operand("dys", dys, dys, tuple(_DY_KINDS))
-    kind = _DY_KINDS[dys.dtype]
-    if (dy_scale is not None) != (kind != 0):
+    """The dy_kind of the sources; checks that codes come with a scale
+    (before the device, so it shows without a card)."""
+    kind = _DY_KINDS.get(dys.dtype)
+    if kind is not None and (dy_scale is not None) != (kind != 0):
         raise ValueError("dy_scale goes with integer error codes, and only "
                          f"with them (dys is {dys.dtype})")
+    _check_operand("dys", dys, dys, tuple(_DY_KINDS))
     if dy_scale is not None and (
-            dy_scale.device != dys.device or dy_scale.numel() != 1
+            dy_scale.get_device() != dys.get_device()
+            or dy_scale.numel() != 1
             or dy_scale.dtype != torch.float32):
         raise ValueError("dy_scale must be one fp32 value on dys's device")
     return kind
 
 
+# The raw handle of a device's current stream: what
+# ``torch.cuda.current_stream(i).cuda_stream`` returns, without building a
+# Stream object (some 5 us of host time a launch on an H100 host); PyTorch's
+# own generated kernels launch on it.  The public call where it is absent.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch_on(fn, index: int, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the raw handle of the
+    current stream of CUDA device ``index``; returns its code.  A kernel
+    launches into the current device's context, so device ``index`` is
+    made current first where it is not (only then: entering
+    ``torch.cuda.device`` costs more host time than the launch)."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, _raw_stream(index))
+    return fn(*args, _raw_stream(index))
+
+
 def _run(name: str, device: torch.device, *args) -> None:
     """Launch ``name`` on ``device``'s current stream; raise on an error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _launch_fn(name)(*args, stream)
+    rc = launch_on(_launch_fn(name), device.index, *args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
@@ -403,25 +508,58 @@ def crossbar_fwd_kernel(xs: torch.Tensor, g_plus: torch.Tensor,
     return y
 
 
+def _pick_bwd(tile: int | None, run: int | None, T: int, M: int, K: int,
+              N: int, d_bytes: int) -> tuple[int, int]:
+    """``tile`` and ``run``, or those :func:`bwd_tile` and :func:`bwd_run`
+    pick for the shape; checks the index, the run and the grid they
+    give."""
+    _check_grid(T, 1, M=M, K=K, N=N)
+    if tile is None and run is None:
+        tile, run = _bwd_plan(T, M, K, N, d_bytes)
+    if tile is None:
+        tile = bwd_tile(T, M, K, N, d_bytes)
+    if not 0 <= tile < len(CROSSBAR_BWD_TILES):
+        raise ValueError(f"tile must index CROSSBAR_BWD_TILES "
+                         f"(0..{len(CROSSBAR_BWD_TILES) - 1}), got {tile}")
+    if run is None:
+        run = bwd_run(T, M, K, N, tile)
+    if run < 1:
+        raise ValueError(f"run must be at least 1, got {run}")
+    bm, bc = bwd_tile_dims(tile)
+    m_tiles = -(-M // bm)
+    _check_grid(T, m_tiles if N > MAX_N_DX_WALK else -(-m_tiles // run),
+                M=M, K=K, N=N)
+    if -(-K // bc) > MAX_GRID_X:
+        raise ValueError(f"grid too large: K={K}")
+    return tile, run
+
+
 def crossbar_bwd_kernel(dys: torch.Tensor, g_plus: torch.Tensor,
                         g_minus: torch.Tensor, *,
-                        dy_scale: torch.Tensor | None = None) -> torch.Tensor:
+                        dy_scale: torch.Tensor | None = None,
+                        tile: int | None = None,
+                        run: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: dys (T, M, N); g± (T, K, N) -> dx (T, M, K).
 
     ``dys`` is fp32, or int8/int32 error codes with a one-element fp32
-    ``dy_scale`` on the same device (read by the kernel, no host sync)."""
+    ``dy_scale`` on the same device (read by the kernel, no host sync).
+    ``tile`` indexes ``CROSSBAR_BWD_TILES`` and ``run`` is the row tiles a
+    block walks (N <= 128); by default the shape picks both (every tile
+    and run gives the same bits)."""
     kind = _dy_kind(dys, dy_scale)
     for name, t in (("g_plus", g_plus), ("g_minus", g_minus)):
         _check_operand(name, t, dys)
     T, M, N = dys.shape
     K = g_plus.shape[1]
-    _check_shapes({"g_plus": (T, K, N), "g_minus": (T, K, N)},
-                  {"dys": dys, "g_plus": g_plus, "g_minus": g_minus})
-    _check_grid(T, -(-M // BLOCK_M), M=M, K=K, N=N)
+    if g_plus.shape != (T, K, N) or g_minus.shape != (T, K, N):
+        _check_shapes({"g_plus": (T, K, N), "g_minus": (T, K, N)},
+                      {"dys": dys, "g_plus": g_plus, "g_minus": g_minus})
+    tile, run = _pick_bwd(tile, run, T, M, K, N, dys.element_size())
     dx = torch.empty((T, M, K), dtype=torch.float32, device=dys.device)
     _run("crossbar_bwd", dys.device, dys.data_ptr(), kind,
          None if dy_scale is None else dy_scale.data_ptr(),
-         g_plus.data_ptr(), g_minus.data_ptr(), dx.data_ptr(), T, M, K, N)
+         g_plus.data_ptr(), g_minus.data_ptr(), dx.data_ptr(), T, M, K, N,
+         tile, run)
     return dx
 
 

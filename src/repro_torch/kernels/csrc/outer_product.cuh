@@ -461,9 +461,29 @@ __device__ __forceinline__ void batch_walk(const float* __restrict__ x,
 // 4-byte elements at `base`, read in boxes of box_rows x box_cols (columns
 // and rows past the end read as zeros).  Returns false, leaving `map`
 // unused, where the accelerator cannot read the matrix: a base not 16-byte
-// aligned or a row not a multiple of 16 bytes.
+// aligned or a row not a multiple of 16 bytes.  Encoding costs some
+// microseconds of host time, about as much as the launch; a map is a
+// function of these arguments alone, so each host thread keeps the last
+// few it encoded and hands out a copy where the arguments recur (a caching
+// allocator hands a step's tensors the same addresses again).
 inline bool tensor_map(CUtensorMap* map, const void* base, long long rows,
                        int cols, int box_rows, int box_cols) {
+  struct Encoded {
+    const void* base;
+    long long rows;
+    int cols, box_rows, box_cols;
+    CUtensorMap map;
+  };
+  constexpr int kKept = 16;
+  thread_local Encoded kept[kKept] = {};
+  thread_local int next = 0;
+  for (const Encoded& e : kept) {
+    if (e.base == base && base != nullptr && e.rows == rows &&
+        e.cols == cols && e.box_rows == box_rows && e.box_cols == box_cols) {
+      *map = e.map;
+      return true;
+    }
+  }
   static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -485,11 +505,21 @@ inline bool tensor_map(CUtensorMap* map, const void* base, long long rows,
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Encoded& e = kept[next];
+  next = (next + 1) % kKept;
+  e.base = base;
+  e.rows = rows;
+  e.cols = cols;
+  e.box_rows = box_rows;
+  e.box_cols = box_cols;
+  e.map = *map;
+  return true;
 }
 
 // The operands of a launch over T cores: x (T M, K) by tensor map where

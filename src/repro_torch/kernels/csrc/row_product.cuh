@@ -1,7 +1,8 @@
 // The row product P = A @ B of one core, for Hopper (sm_90a), fp32 on the
 // CUDA cores: the forward product y = x @ w of crossbar_fwd.cu and of the
-// fused kernel's y blocks, and the error product dx = d @ w^T of the fused
-// kernel's dx blocks, with w = gp - gm formed in shared memory.  No
+// fused kernel's y blocks, and the error product dx = d @ w^T of
+// crossbar_bwd.cu and of the fused kernel's dx blocks, with w = gp - gm
+// formed in shared memory.  No
 // PyTorch headers: the sources that include it build with nvcc into a
 // plain C library.
 //
@@ -10,9 +11,9 @@
 // y, N for dx), starting from 0.f; w = __fsub_rn(gp, gm) is formed in fp32
 // before the product and error codes are dequantized as
 // __fmul_rn(float(code), scale).  That is the chain of crossbar_fwd.cu's
-// and crossbar_bwd.cu's earlier 64 x 64 tiles, so every tile below, the
-// standalone forward and the fused kernel's y and dx blocks give the same
-// bits.  Lines past R are skipped instead of added as 0 * 0 (a chain from
+// and crossbar_bwd.cu's first 64 x 64 tiles, so every tile below, the
+// standalone forward and error product and the fused kernel's y and dx
+// blocks give the same bits.  Lines past R are skipped instead of added as 0 * 0 (a chain from
 // +0 never yields -0, so adding +0 would change no bit).
 //
 // Design.  A block owns a BM x BC tile of the output of one core.  Its
@@ -42,7 +43,11 @@
 //     flight while one is summed and stored.  fp32 d arrives as tensor-map
 //     boxes; int8 codes as 16-byte cp.async windows that the producer
 //     dequantizes; int32 codes and operands no map can describe as 4-byte
-//     cp.async copies.
+//     cp.async copies.  Each tile is made ready as soon as its copies land.
+//   * error over any N (dx_ring_walk): the forward's ring with N in the
+//     place of K; the producer forms each stage's lines of w^T from g+ and
+//     g- boxes (rows of K), so B keeps the forward's layout.
+//   Sums leave as one 16-byte store per row where the row allows it.
 //
 // What bounds it on an H100 SXM: the fp32 rate, 67 TFLOP/s, without TF32.
 // A TM x TC tile issues TM + TC vector loads per 4 TM TC fmaf; shared
@@ -413,20 +418,44 @@ __host__ __device__ constexpr int dx_smem_bytes(int N, int d_bytes) {
   return dx_b_bytes<C>(N) + C::S * dx_stage_bytes<C>(N, d_bytes) + 16 * C::S;
 }
 
-// Dequantize a landed stage of int8 codes (rows of N bytes, row r at raw +
-// r * RB from byte (address of its first code & 15)) into A, 4 codes a lane
-// per step, each as __fmul_rn(float(code), scale).  Lines past N get
-// whatever the windows held; they are never summed.
+// The int8 codes of `rows` rows of `count` codes each (row r from src + r *
+// ld) as the aligned 16-byte windows that hold them, by the 32 producer
+// lanes: row r lands at raw + r * RB, its first code at byte (address &
+// 15).  A window holding a wanted byte lies in one aligned 16 bytes, so it
+// never crosses a page; its other bytes are never used.
+__device__ __forceinline__ void copy_code_windows(unsigned char* raw, int RB,
+                                                  const int8_t* src, int ld,
+                                                  int count, int rows,
+                                                  int lane) {
+  const int cpr = RB / 16;
+  for (int e = lane; e < rows * cpr; e += 32) {
+    const int r = e / cpr, c = e % cpr;
+    const int8_t* a = src + static_cast<size_t>(r) * ld;
+    const int8_t* w = reinterpret_cast<const int8_t*>(
+        reinterpret_cast<uintptr_t>(a) & ~uintptr_t(15)) + 16 * c;
+    if (w < a + count) copy16(raw + r * RB + 16 * c, w);
+  }
+}
+
+// Dequantize landed int8 codes (`rows` rows of `count` codes, row r from
+// src + r * ld, landed by copy_code_windows at raw + r * RB) into A (row
+// pitch P words), 4 codes a thread per step, each as
+// __fmul_rn(float(code), scale), by `threads` threads of which this is
+// number `first` (the producer's 32 lanes, or every compute thread).
+// Lines past `count` get whatever the windows held; they are never
+// summed.
 __device__ __forceinline__ void dequant_rows(float* as, int P,
                                              const unsigned char* raw,
                                              int RB, const int8_t* src,
-                                             int N, int rows, float scale,
-                                             int lane) {
-  const int qpr = (N + 3) / 4;
-  for (int e = lane; e < rows * qpr; e += 32) {
+                                             int ld, int count, int rows,
+                                             float scale, int first,
+                                             int threads = 32) {
+  const int qpr = (count + 3) / 4;
+#pragma unroll 1
+  for (int e = first; e < rows * qpr; e += threads) {
     const int r = e / qpr, c = 4 * (e % qpr);
     const int off = static_cast<int>(reinterpret_cast<uintptr_t>(
-                        src + static_cast<size_t>(r) * N) & 15) + c;
+                        src + static_cast<size_t>(r) * ld) & 15) + c;
     const unsigned* w =
         reinterpret_cast<const unsigned*>(raw + r * RB) + off / 4;
     const unsigned q = __byte_perm(w[0], w[1], 0x3210 + 0x1111 * (off & 3))
@@ -437,6 +466,34 @@ __device__ __forceinline__ void dequant_rows(float* as, int P,
     v.z = __fmul_rn(outer_product::code_value(q, 2), scale);
     v.w = __fmul_rn(outer_product::code_value(q, 3), scale);
     *reinterpret_cast<float4*>(as + r * P + c) = v;
+  }
+}
+
+// Store a compute thread's TM x TC sums at rows m0 + tile_m + NTM i and
+// columns c0 + tile_c + j of a row-major (M, ld) matrix: one 16-byte store
+// a row where the row's TC = 4 columns lie inside and aligned (`vec`: out
+// 16-byte aligned and ld a multiple of 4), else one value at a time.
+template <class C>
+__device__ __forceinline__ void store_tile(float* __restrict__ out,
+                                           const float (&acc)[C::TM][C::TC],
+                                           int M, int ld, int m0, int c0,
+                                           bool vec) {
+  const int c = c0 + tile_c<C>();
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int m = m0 + tile_m<C>() + C::NTM * i;
+    if (m >= M) break;
+    float* row = out + static_cast<size_t>(m) * ld + c;
+    if constexpr (C::TC == 4) {
+      if (vec && c + 4 <= ld) {
+        *reinterpret_cast<float4*>(row) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::TC; ++j)
+      if (c + j < ld) row[j] = acc[i][j];
   }
 }
 
@@ -479,15 +536,27 @@ __device__ __forceinline__ void dx_walk(const TD* __restrict__ d,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // B[n][kk] = w[k0 + kk][n], read along n (coalesced), by every thread
-  for (int e = threadIdx.x; e < C::BC * N; e += C::THREADS) {
-    const int kk = e / N, n = e % N;
-    float w = 0.f;
-    if (k0 + kk < K) {
-      const size_t o = static_cast<size_t>(k0 + kk) * N + n;
-      w = __fsub_rn(gp[o], gm[o]);
+  // B[n][kk] = w[k0 + kk][n], read along n (coalesced), by every thread,
+  // U elements a thread at a time so that their loads are in flight
+  // together (columns past K hold 0 - 0 = +0, never stored)
+  constexpr int U = 8;
+  for (int e0 = threadIdx.x; e0 < C::BC * N; e0 += U * C::THREADS) {
+    float p[U], q[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * C::THREADS, kk = e / N;
+      p[u] = q[u] = 0.f;
+      if (e < C::BC * N && k0 + kk < K) {
+        const size_t o = static_cast<size_t>(k0 + kk) * N + e % N;
+        p[u] = gp[o];
+        q[u] = gm[o];
+      }
     }
-    bsm[n * BP + kk] = w;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * C::THREADS;
+      if (e < C::BC * N) bsm[(e % N) * BP + e / N] = __fsub_rn(p[u], q[u]);
+    }
   }
   __syncthreads();
 
@@ -505,16 +574,9 @@ __device__ __forceinline__ void dx_walk(const TD* __restrict__ d,
           tma_load(as, dmap, 0, t * M + m0, &full[j % C::S]);
         }
       } else if constexpr (kBytes) {
-        unsigned char* raw =
-            reinterpret_cast<unsigned char*>(slot(j) + A_BYTES);
-        const int cpr = RB / 16;
-        for (int e = lane; e < rows * cpr; e += 32) {
-          const int r = e / cpr, c = e % cpr;
-          const int8_t* a = dg + static_cast<size_t>(r) * N;
-          const int8_t* w = reinterpret_cast<const int8_t*>(
-              reinterpret_cast<uintptr_t>(a) & ~uintptr_t(15)) + 16 * c;
-          if (w < a + N) copy16(raw + r * RB + 16 * c, w);
-        }
+        copy_code_windows(
+            reinterpret_cast<unsigned char*>(slot(j) + A_BYTES), RB,
+            reinterpret_cast<const int8_t*>(dg), N, N, rows, lane);
       } else {
         for (int e = lane; e < rows * N; e += 32) {
           const int r = e / N, c = e % N;
@@ -526,12 +588,13 @@ __device__ __forceinline__ void dx_walk(const TD* __restrict__ d,
     auto ready = [&](int j) {
       float* as = reinterpret_cast<float*>(slot(j));
       const int rows = rows_of(j);
+      __syncwarp();   // every lane's copies of the tile have landed
       if constexpr (kBytes) {
         dequant_rows(as, P,
                      reinterpret_cast<const unsigned char*>(slot(j) + A_BYTES),
                      RB, reinterpret_cast<const int8_t*>(d) +
                          static_cast<size_t>((mt0 + j) * C::BM) * N,
-                     N, rows, scale, lane);
+                     N, N, rows, scale, lane);
       } else if constexpr (kInt32) {
         for (int e = lane; e < rows * N; e += 32) {
           const int r = e / N, c = e % N;
@@ -542,22 +605,22 @@ __device__ __forceinline__ void dx_walk(const TD* __restrict__ d,
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[j % C::S]);
     };
+    // a tile is one long stage: ready it as soon as its own copies land
+    // (at once for a tensor-map box), so it never waits for the slot of
+    // the tile after it to empty
     for (int j = 0; j < tiles; ++j) {
       if (j >= C::S) mbar_wait(&empty[j % C::S], (j / C::S + 1) & 1);
       issue(j);
-      if (j > 0) {
-        outer_product::wait_pending<1>();
-        ready(j - 1);
-      }
+      outer_product::wait_pending<0>();
+      ready(j);
     }
-    outer_product::wait_pending<0>();
-    ready(tiles - 1);
     return;
   }
 
   const bool on = active<C>();
   const int tm = tile_m<C>(), tc = tile_c<C>();
   const float* bs = bsm + tc;
+  const bool vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
   for (int j = 0; j < tiles; ++j) {
     mbar_wait(&full[j % C::S], (j / C::S) & 1);
     float acc[C::TM][C::TC];
@@ -568,19 +631,222 @@ __device__ __forceinline__ void dx_walk(const TD* __restrict__ d,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[j % C::S]);
-    if (!on) continue;
-    const int m0 = (mt0 + j) * C::BM;
+    if (on) store_tile<C>(dx, acc, M, K, (mt0 + j) * C::BM, k0, vec);
+  }
+}
+
+// ---- error product over a ring of N stages (any N) ------------------------
+
+// How the ring walk reaches its operands: 2-D tensor maps of fp32 d (T M,
+// N) in boxes of (BM, AP) and of g+ and g- (T K, N) in boxes of (BC, AP),
+// each used where `tma` has its bit (kTmaX for d, kTmaG for both g).
+struct DxMaps {
+  CUtensorMap d, gp, gm;
+  int tma;
+};
+
+// bytes of one row of int8 codes in a ring stage: BR codes starting
+// anywhere in an aligned 16-byte window, plus the next windows
+template <class C>
+__host__ __device__ constexpr int dxr_code_row() {
+  return (C::BR + 15) / 16 * 16 + 16;
+}
+
+// One ring stage: A (BM x AP words of d), B (BR x BC words: the stage's
+// lines of w^T), the g+ and g- boxes (BC x AP words each) and, for int8
+// codes, their raw bytes.
+template <class C>
+__host__ __device__ constexpr int dxr_stage_bytes(int d_bytes) {
+  return round128(4 * C::BM * C::AP) + round128(4 * C::BR * C::BC) +
+         2 * round128(4 * C::BC * C::AP) +
+         (d_bytes == 1 ? round128(C::BM * dxr_code_row<C>()) : 0);
+}
+
+template <class C>
+__host__ __device__ constexpr int dxr_smem_bytes(int d_bytes) {
+  return C::S * dxr_stage_bytes<C>(d_bytes) + 24 * C::S;   // 3 mbarriers
+}
+
+// B[n][kk] = g+[kk][n] - g-[kk][n] for a stage's `lines` lines (rounded up
+// to whole 4-line groups; the extra lines of B are never summed), from the
+// g boxes (BC rows of AP words), by the producer lanes: a lane reads 4
+// lines of one row as a vector (8 lanes, 8 rows at a pitch of 4 mod 8
+// words: distinct banks) and stores them down a column of B (consecutive
+// lanes, consecutive columns).
+template <class C>
+__device__ __forceinline__ void form_wt(float* bs, const float* ps,
+                                        const float* ns, int lines,
+                                        int lane) {
+  const int groups = (lines + 3) / 4;
+#pragma unroll 1
+  for (int e = lane; e < groups * C::BC; e += 32) {
+    const int kk = e % C::BC, q = 4 * (e / C::BC);
+    const float4 p = *reinterpret_cast<const float4*>(ps + kk * C::AP + q);
+    const float4 m = *reinterpret_cast<const float4*>(ns + kk * C::AP + q);
+    float* b = bs + q * C::BC + kk;
+    b[0] = __fsub_rn(p.x, m.x);
+    b[C::BC] = __fsub_rn(p.y, m.y);
+    b[2 * C::BC] = __fsub_rn(p.z, m.z);
+    b[3 * C::BC] = __fsub_rn(p.w, m.w);
+  }
+}
+
+// dx[m][k] = sum over n ascending of d[m][n] * w[k][n] for core t, for the
+// block's BM x BC tile at rows m0.. and columns k0.., stored when done: d
+// (M, N) as TD (float, or int8 / int32 codes dequantized with `scale`), gp,
+// gm (K, N) and dx (M, K) are that core's.  Any N: the walk rings N in
+// stages of BR lines, as fwd_walk rings K.  The producer lands a stage's d
+// rows and its BC rows of g+ and g-, forms the stage's lines of w^T into B
+// (and dequantizes int32 codes in A), so the compute warps read the
+// forward's layout (A [m][n] at pitch AP, B [n][k] at pitch BC) and sum
+// with its loops.  int8 codes are dequantized into A by the compute
+// threads, each a share, behind a barrier of theirs: a stage is short, and
+// one producer warp dequantizing every stage held the walk back.  `smem`
+// holds dxr_smem_bytes<C>(sizeof(TD)).  Every thread of the block calls it.
+//
+// Each slot has fwd_walk's three mbarriers: `landed` (the g boxes, which
+// the producer waits on before it forms B), `full` (d's box and the
+// producer's arrival once B and the copies are ready) and `empty`.
+template <class C, typename TD>
+__device__ __forceinline__ void dx_ring_walk(const TD* __restrict__ d,
+                                             float scale,
+                                             const float* __restrict__ gp,
+                                             const float* __restrict__ gm,
+                                             float* __restrict__ dx, int M,
+                                             int K, int N, int t, int m0,
+                                             int k0, const DxMaps& maps,
+                                             char* smem) {
+  constexpr int RB = dxr_code_row<C>();
+  constexpr int A_BYTES = round128(4 * C::BM * C::AP);
+  constexpr int B_BYTES = round128(4 * C::BR * C::BC);
+  constexpr int G_BYTES = round128(4 * C::BC * C::AP);
+  constexpr int SB = dxr_stage_bytes<C>(sizeof(TD));
+  constexpr int WARPS = C::COMPUTE / 32;
+  constexpr bool kFloat = std::is_same<TD, float>::value;
+  constexpr bool kBytes = sizeof(TD) == 1;
+  constexpr bool kInt32 = !kBytes && !kFloat;
+  const bool tma_d = kFloat && (maps.tma & kTmaX);
+  const bool tma_g = maps.tma & kTmaG;
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + C::S * SB);
+  uint64_t* full = landed + C::S;
+  uint64_t* empty = full + C::S;
+  const int lane = threadIdx.x % 32;
+  const int stages = (N + C::BR - 1) / C::BR;
+  const int rows = min(C::BM, M - m0);
+  if (threadIdx.x == C::COMPUTE) {
 #pragma unroll
-    for (int i = 0; i < C::TM; ++i) {
-      const int m = m0 + tm + C::NTM * i;
-      if (m >= M) break;
-#pragma unroll
-      for (int jj = 0; jj < C::TC; ++jj) {
-        const int k = k0 + tc + jj;
-        if (k < K) dx[static_cast<size_t>(m) * K + k] = acc[i][jj];
+    for (int s = 0; s < C::S; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto slot = [&](int st) { return smem + (st % C::S) * SB; };
+  auto lines_of = [&](int st) { return min(C::BR, N - st * C::BR); };
+
+  if (threadIdx.x >= C::COMPUTE) {   // the producer warp
+    auto issue = [&](int st) {
+      float* as = reinterpret_cast<float*>(slot(st));
+      float* ps = reinterpret_cast<float*>(slot(st) + A_BYTES + B_BYTES);
+      float* ns = ps + G_BYTES / 4;
+      const int n0 = st * C::BR, lines = lines_of(st);
+      if (lane == 0) {
+        if (tma_g) {
+          mbar_arrive_expect(&landed[st % C::S], 2 * 4 * C::BC * C::AP);
+          tma_load(ps, &maps.gp, n0, t * K + k0, &landed[st % C::S]);
+          tma_load(ns, &maps.gm, n0, t * K + k0, &landed[st % C::S]);
+        }
+        if (tma_d) {
+          mbar_expect(&full[st % C::S], 4 * C::BM * C::AP);
+          tma_load(as, &maps.d, n0, t * M + m0, &full[st % C::S]);
+        }
+      }
+      const TD* dg = d + static_cast<size_t>(m0) * N + n0;
+      if constexpr (kBytes) {
+        copy_code_windows(reinterpret_cast<unsigned char*>(
+                              slot(st) + A_BYTES + B_BYTES + 2 * G_BYTES),
+                          RB, dg, N, lines, rows, lane);
+      } else if (!tma_d) {
+        for (int e = lane; e < rows * lines; e += 32) {
+          const int r = e / lines, c = e % lines;
+          copy4(as + r * C::AP + c, dg + static_cast<size_t>(r) * N + c);
+        }
+      }
+      if (!tma_g) {
+        const int cols = min(C::BC, K - k0);
+        for (int e = lane; e < cols * lines; e += 32) {
+          const int r = e / lines, c = e % lines;
+          const size_t o = static_cast<size_t>(k0 + r) * N + n0 + c;
+          copy4(ps + r * C::AP + c, gp + o);
+          copy4(ns + r * C::AP + c, gm + o);
+        }
+      }
+      commit();
+    };
+    auto ready = [&](int st) {
+      float* as = reinterpret_cast<float*>(slot(st));
+      const float* ps =
+          reinterpret_cast<const float*>(slot(st) + A_BYTES + B_BYTES);
+      const int lines = lines_of(st);
+      if (tma_g) mbar_wait(&landed[st % C::S], (st / C::S) & 1);
+      __syncwarp();   // every lane's copies of the stage have landed
+      form_wt<C>(reinterpret_cast<float*>(slot(st) + A_BYTES), ps,
+                 ps + G_BYTES / 4, lines, lane);
+      if constexpr (kInt32) {
+        for (int e = lane; e < rows * lines; e += 32) {
+          const int r = e / lines, c = e % lines;
+          as[r * C::AP + c] = __fmul_rn(
+              static_cast<float>(__float_as_int(as[r * C::AP + c])), scale);
+        }
+      }
+      // the next boxes into this slot come through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[st % C::S]);
+    };
+    for (int st = 0; st < stages; ++st) {
+      if (st >= C::S) mbar_wait(&empty[st % C::S], (st / C::S + 1) & 1);
+      issue(st);
+      if (st > 0) {
+        outer_product::wait_pending<1>();   // all but stage st's copies
+        ready(st - 1);
       }
     }
+    outer_product::wait_pending<0>();
+    ready(stages - 1);
+    return;
   }
+
+  const bool on = active<C>();
+  const int a_off = tile_m<C>() * C::AP;
+  const int b_off = A_BYTES / 4 + tile_c<C>();
+  float acc[C::TM][C::TC];
+  zero<C>(acc);
+  for (int st = 0; st < stages; ++st) {
+    mbar_wait(&full[st % C::S], (st / C::S) & 1);
+    if constexpr (kBytes) {   // every compute thread dequantizes a share
+      const unsigned char* raw = reinterpret_cast<const unsigned char*>(
+          slot(st) + A_BYTES + B_BYTES + 2 * G_BYTES);
+      const int8_t* src = d + static_cast<size_t>(m0) * N + st * C::BR;
+      dequant_rows(reinterpret_cast<float*>(slot(st)), C::AP, raw, RB, src,
+                   N, lines_of(st), rows, scale, threadIdx.x, C::COMPUTE);
+      // the compute threads only: the producer is not at this barrier
+      asm volatile("bar.sync 1, %0;\n" :: "r"(C::COMPUTE) : "memory");
+    }
+    const float* base = reinterpret_cast<const float*>(slot(st));
+    // not sum_stage: its full unroll costs some 50 registers a thread here
+    if (on)
+      sum_lines<C>(base + a_off, C::NTM * C::AP, base + b_off, C::BC,
+                   lines_of(st), acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st % C::S]);
+  }
+  if (on)
+    store_tile<C>(dx, acc, M, K, m0, k0,
+                  K % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0);
 }
 
 // ---- host side -------------------------------------------------------------

@@ -42,16 +42,16 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import kmeans as kmk
 
 
-def _dispatch(wrapper, name: str, *tensors, module=xbk, **kwargs):
-    """Run ``name`` of ``module`` (the crossbar kernels unless named): its
-    plain version when every tensor (``dy_scale`` and a tensor ``lr``
-    included) lies on the CPU, else its CUDA kernel on contiguous
-    operands, counted on ``wrapper.launches``."""
-    extra = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
-    if all(t.device.type == "cpu" for t in list(tensors) + extra):
-        return getattr(module, f"{name}_plain")(*tensors, **kwargs)
-    tensors = tuple(t.contiguous() for t in tensors)
-    out = getattr(module, f"{name}_kernel")(*tensors, **kwargs)
+def _dispatch(wrapper, name: str, *tensors, **kwargs):
+    """Run the crossbar kernel ``name``: its plain version when every
+    tensor (``dy_scale`` and a tensor ``lr`` included) lies on the CPU,
+    else its CUDA kernel on contiguous operands, counted on
+    ``wrapper.launches``."""
+    if all(t.is_cpu for t in tensors) and all(
+            v.is_cpu for v in kwargs.values() if isinstance(v, torch.Tensor)):
+        return getattr(xbk, f"{name}_plain")(*tensors, **kwargs)
+    out = getattr(xbk, f"{name}_kernel")(
+        *[t.contiguous() for t in tensors], **kwargs)
     wrapper.launches += 1
     return out
 
@@ -328,8 +328,13 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     (raises otherwise).  Any n: the kernel masks the ragged tail, nothing
     is padded."""
     kmk.check_limits(x, centers)
-    return _dispatch(kmeans_assign, "kmeans_assign", x.to(torch.float32),
-                     centers.to(torch.float32), module=kmk)
+    x, centers = x.to(torch.float32), centers.to(torch.float32)
+    if x.is_cpu and centers.is_cpu:
+        return kmk.kmeans_assign_plain(x, centers)
+    # fp32, limits checked: the launch checks only n and the device
+    out = kmk.launch(x.contiguous(), centers.contiguous())
+    kmeans_assign.launches += 1
+    return out
 
 
 kmeans_assign.launches = 0

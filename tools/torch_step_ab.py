@@ -11,8 +11,17 @@ change and its parent alternate on the same card.  For each it builds the
 crossbar kernels of that tree, makes mnist_class and isolet_class chips
 with seed 0, and prints one JSON line: the eager and the compiled
 ``train_step`` times (CUDA events over 10 steps after 3 of warm-up; mnist
-at batch 4096, isolet at 256) and the eager mnist step's device busy time
-and idle share under ``torch.profiler``.  Each tree also computes, on
+at batch 4096, isolet at 256), the eager mnist step's device busy time
+and idle share under ``torch.profiler``, and the kernel wrappers' times:
+``ops.crossbar_bwd_stacked`` on the eager mnist step's four stacks at
+M = 4096 and ``ops.kmeans_assign`` at the clustering path's (2048, 20, 10)
+by CUDA events (back-to-back calls, the host's time included where it is
+the longer) and by device time (a CUDA graph of 20 calls replayed), each
+wrapper's host time per call (a host clock over 500 calls at a shape the
+card finishes sooner), ``kmeans_assign`` at (65536, 128, 128) and
+``ops.crossbar_bwd`` on int8 codes at mnist's four layers (M = 4096,
+crossbar_apply's launches) by device time, and the fused kernel on the
+same four stacks by device time.  Each tree also computes, on
 inputs drawn from seed 1, the mnist_class wave at 4096 samples on a
 compiled and on an eager chip and the conductances after one compiled
 step at batch 4096 from seed 0; the last line holds every tree's outputs
@@ -29,7 +38,9 @@ import sys
 import tempfile
 
 KERNELS = ["crossbar_fwd", "crossbar_bwd", "crossbar_dw", "pulse_update",
-           "crossbar_train"]
+           "crossbar_train", "kmeans_assign"]
+# (T, K, N) of the eager mnist_class step's bwd launches, at M = 4096
+MNIST_STACKS = [(6, 400, 100), (2, 400, 100), (1, 400, 100), (1, 400, 100)]
 
 
 def step_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -45,6 +56,90 @@ def step_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: a CUDA graph of ``calls`` calls
+    replayed ``reps`` times between two events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Host time per call of ``fn`` (the enqueue, without waiting for the
+    card), microseconds."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def wrappers(gen) -> dict:
+    """The bwd and k-means wrappers' times and the fused kernel's."""
+    import torch
+    from repro_torch.kernels import crossbar as xbk, ops
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    out = {"bwd events ms": 0.0, "bwd device ms": 0.0,
+           "fused device ms": 0.0}
+    lr = torch.full((1,), 0.01, device="cuda")
+    for T, K, N in MNIST_STACKS:
+        d = uniform((T, 4096, N), -0.05, 0.05)
+        x = uniform((T, 4096, K), -0.5, 0.5)
+        gp, gm = uniform((T, K, N), 0.3, 0.7), uniform((T, K, N), 0.3, 0.7)
+        out["bwd events ms"] += step_ms(
+            lambda: ops.crossbar_bwd_stacked(d, gp, gm), iters=20)
+        out["bwd device ms"] += graph_ms(
+            lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+        out["fused device ms"] += graph_ms(
+            lambda: xbk.crossbar_train_kernel(gp, gm, x, d, lr=lr))
+    d = uniform((1, 64, 100), -0.05, 0.05)
+    gp, gm = uniform((1, 400, 100), 0.3, 0.7), uniform((1, 400, 100), 0.3, 0.7)
+    out["bwd host us per call at (1, 64, 400, 100)"] = host_us(
+        lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+    out["bwd device us at (1, 64, 400, 100)"] = 1e3 * graph_ms(
+        lambda: ops.crossbar_bwd_stacked(d, gp, gm))
+    scale = torch.tensor(0.05 / 127, device="cuda")
+    for K, N in ((784, 300), (300, 200), (200, 100), (100, 10)):
+        codes = torch.randint(-127, 128, (4096, N), generator=gen,
+                              dtype=torch.int8, device="cuda")
+        gp, gm = uniform((K, N), 0.3, 0.7), uniform((K, N), 0.3, 0.7)
+        out[f"bwd int8 (4096, {K}, {N}) device ms"] = graph_ms(
+            lambda: ops.crossbar_bwd(codes, gp, gm, dy_scale=scale))
+    x, c = uniform((2048, 20), -0.5, 0.5), uniform((10, 20), -0.5, 0.5)
+    out["kmeans (2048, 20, 10) events ms"] = step_ms(
+        lambda: ops.kmeans_assign(x, c), iters=200)
+    out["kmeans (2048, 20, 10) device ms"] = graph_ms(
+        lambda: ops.kmeans_assign(x, c))
+    out["kmeans host us per call at (2048, 20, 10)"] = host_us(
+        lambda: ops.kmeans_assign(x, c))
+    x, c = uniform((65536, 128), -0.5, 0.5), uniform((128, 128), -0.5, 0.5)
+    out["kmeans (65536, 128, 128) device ms"] = graph_ms(
+        lambda: ops.kmeans_assign(x, c))
+    return out
 
 
 def busy(fn, reps: int = 3) -> dict:
@@ -97,8 +192,11 @@ def one(root: pathlib.Path, save: pathlib.Path) -> dict:
     from repro_torch.launch.chipsim import build_chip
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_all(KERNELS)
-    torch.save(outputs(build_chip), save)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # first: a CUDA graph captured after the compiled chips are dropped may
+    # meet their graphs' teardown
+    timed = wrappers(gen)
+    torch.save(outputs(build_chip), save)
 
     def uniform(shape):
         return torch.rand(shape, generator=gen, device="cuda") - 0.5
@@ -115,6 +213,7 @@ def one(root: pathlib.Path, save: pathlib.Path) -> dict:
             if (mode, app) == ("eager", "mnist_class"):
                 out["eager mnist_class step profile"] = busy(
                     lambda: chip.train_step(x, t, lr=0.1))
+    out["wrappers"] = timed
     return out
 
 
