@@ -152,12 +152,49 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     fp32 kernel, also in the chunked function), and every generated
     token must be the prefill argmax except where its top-2 gap lies within
     that bar (counted); decode ms per step, tokens/s and a profiled step;
-12. prints the wave and training-step times (CUDA events), compiled beside
+12. faulted chip: ``build_chip("mnist_class", faults=MemristorFaults(
+    stuck_on=0.0025, stuck_off=0.01, variation_sigma=0.05, seed=0))``
+    (``compiled=True`` asked for): its injected stacks equal the plain
+    overlay of the masks and per-core scales on the clean placement, bit
+    for bit; one 4096-sample wave (counts at 0 before, read after: 5
+    forward launches) held like step 4 on the faulted layers; two
+    ``train_step``s at batch 4096 (counts at 0 before, read after: 5
+    forward + 4 bwd + 4 pulse launches a step, no capture — the eager
+    path), each stage held against the plain versions and each step
+    against the plain ``paper_backprop_step`` followed by the plain
+    re-application of the stuck masks; every stuck cell exactly 0 or
+    w_max after injection and after each step; its step time;
+13. farm training: ``build_farm("mnist_class", 4)`` at global batch 4096
+    (1024 a chip), two compiled steps (counts at 0 before, read after: 4
+    forward + 4 bwd + 4 dw launches a step over every chip's cores, one
+    capture) and the same two steps eager from the same conductances
+    (counts at 0 before, read after: 5 + 4 + 4 a step); every launch held
+    against its plain version on its own operands (the chip axis folded
+    into the core stack), its conductances the envelope's own contiguous
+    (C, T_s) block; compiled against eager step by step; the first step
+    against a serial compiled ``VirtualChip`` step on the same data (the
+    error within 1e-6, conductances within 1e-6 but the cells whose
+    unrounded pulse count lies within 1e-4 of k + 1/2, counted and
+    printed); the replicas bit for bit in lockstep, also after one
+    ``reconcile="int8"`` step; ``report()`` within 1 % of ``farm_cost``;
+    the compiled, eager and serial steps' times, samples/s and the
+    compiled step's idle share;
+14. farm serving: ``FarmServer`` on that farm, 256 requests of 16 samples
+    (counts at 0 before, read after): the compiled session is one program
+    of S - 1 + 64 beats, one forward launch a beat; an eager server on a
+    fresh farm holding the same conductances launches 2 a beat; both give
+    equal outputs and equal stats (beat 0.77 us within 1 %), held against
+    the compiled chip wave of the same conductances and through it against
+    ``mlp_forward`` under the 3-bit rule; the session's time (events),
+    host time a beat, device samples/s and idle share;
+15. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those), one ``{"kernels": [...]}`` line with eight
-    entries (the fp32 flash kernel as ``flash_attention_simt``), and last
-    ``{"ok": true, "device": {...}}``.
+    entries (the fp32 flash kernel as ``flash_attention_simt``; the
+    crossbar kernels' ``launches`` include steps 12-14, broken down in
+    ``launches_faults_and_farm``), and last ``{"ok": true, "device":
+    {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -1345,7 +1382,11 @@ class Recorder:
 
         def record(*args, **kwargs):
             out = fn(*args, **kwargs)
-            self.calls[name].append((args, kwargs, out))
+            # copies of the new stacks: a faulted chip re-asserts its
+            # stuck masks into them in place after the update
+            kept = tuple(t.clone() for t in out) \
+                if isinstance(out, tuple) else out
+            self.calls[name].append((args, kwargs, kept))
             return out
         return record
 
@@ -2726,6 +2767,416 @@ def lm_path(ops) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Faulted chip, farm training and farm serving
+# ---------------------------------------------------------------------------
+
+FAULTS = dict(stuck_on=0.0025, stuck_off=0.01, variation_sigma=0.05, seed=0)
+FARM_CHIPS, FARM_BATCH = 4, 4096
+SERVE_REQUESTS, SERVE_M = 256, 16
+# the farm's launches and their plain versions: (kernel, default kwargs)
+FARM_PLAIN = {"crossbar_fwd_stacked": ("crossbar_fwd", {"activation": False}),
+              "crossbar_bwd_stacked": ("crossbar_bwd", {}),
+              "crossbar_dw_stacked": ("crossbar_dw", {})}
+
+
+def plain_overlay(g, on, off, scales) -> torch.Tensor:
+    """The fault overlay in plain PyTorch: the per-core scale clipped to
+    the conductance range, then stuck-on cells to w_max and stuck-off
+    cells (which win an overlap) to 0."""
+    g = torch.clamp(g * scales[:, None, None], 0.0, W_MAX)
+    g = torch.where(on, torch.full_like(g, W_MAX), g)
+    return torch.where(off, torch.zeros_like(g), g)
+
+
+def stage_masks(faults, st) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(on, off) masks of stage ``st``'s g+ and g- stacks, on the card."""
+    return [tuple(m.cuda() for m in faults.masks(tuple(g.shape),
+                                                 2 * st.index + side))
+            for side, g in enumerate((st.g_plus, st.g_minus))]
+
+
+def faulted_rule(faults, chip, paper_backprop_step):
+    """The plain paper rule followed by the plain re-application of the
+    chip's stuck masks, on (fan_in, fan_out) layers."""
+    masks = [[tuple(untile(m, st) for m in side)
+              for side in stage_masks(faults, st)]
+             for st in chip.placement.stages]
+
+    def rule(layers, x, target, spec, lr):
+        want, err = paper_backprop_step(layers, x, target, spec, lr)
+        for p, sides in zip(want, masks):
+            for k, (on, off) in zip(("g_plus", "g_minus"), sides):
+                g = torch.where(on, torch.full_like(p[k], W_MAX), p[k])
+                p[k] = torch.where(off, torch.zeros_like(g), g)
+        return want, err
+    return rule, masks
+
+
+def check_stuck(layers, masks, what) -> int:
+    """Every stuck cell of ``layers`` reads exactly 0 or w_max; returns
+    the number of stuck cells."""
+    n = 0
+    for li, (p, sides) in enumerate(zip(layers, masks)):
+        for k, (on, off) in zip(("g_plus", "g_minus"), sides):
+            if not (bool((p[k][off] == 0.0).all())
+                    and bool((p[k][on] == W_MAX).all())):
+                raise AssertionError(f"{what}: layer {li} {k}: a stuck "
+                                     f"cell moved")
+            n += int(on.sum()) + int(off.sum())
+    return n
+
+
+def faulted_chip_path(ops, csim, chip_mod, build_chip, spec, mlp_forward,
+                      paper_backprop_step, gen) -> dict:
+    """The faulted chip (module docstring, step 12)."""
+    from repro_torch.runtime.faults import MemristorFaults
+    faults = MemristorFaults(**FAULTS)
+    chip = build_chip("mnist_class", seed=SEED, device="cuda",
+                      faults=faults)
+    clean = build_chip("mnist_class", seed=SEED, device="cuda",
+                       compiled=False)
+    if not chip.compiled or chip._compiled_active():
+        raise AssertionError("a faulted chip must run its eager path")
+    for st, cst in zip(chip.placement.stages, clean.placement.stages):
+        for side, (g, g0) in enumerate(((st.g_plus, cst.g_plus),
+                                        (st.g_minus, cst.g_minus))):
+            salt = 2 * st.index + side
+            on, off = (m.cuda() for m in faults.masks(tuple(g0.shape),
+                                                      salt))
+            scales = faults.core_scales(g0.shape[0], salt).cuda()
+            if not torch.equal(g, plain_overlay(g0, on, off, scales)):
+                raise AssertionError(f"stage {st.index}: injected stacks "
+                                     f"differ from the plain overlay")
+    rule, masks = faulted_rule(faults, chip, paper_backprop_step)
+    stuck = check_stuck(chip.layers(), masks, "injected")
+    x = uniform((FARM_BATCH, 784), -0.5, 0.5, gen)
+    data = [(uniform((FARM_BATCH, 784), -0.5, 0.5, gen),
+             uniform((FARM_BATCH, 10), -0.5, 0.5, gen)) for _ in range(2)]
+    # recognition: counts at 0, one wave, read
+    zero_counts(ops, csim)
+    out, _ = chip.infer_stream(x)
+    torch.cuda.synchronize()
+    wave = read_counts(ops)
+    if wave != {"crossbar_fwd_stacked": 5}:
+        raise AssertionError(f"faulted wave launches {wave}, expected 5")
+    flips = {f"wave x{FARM_BATCH}": check_chip_wave(chip, x, out,
+                                                     mlp_forward, spec)}
+    # training: counts at 0, two steps at batch 4096, read
+    rec = Recorder(ops)
+    chip_mod.kernel_ops = rec
+    try:
+        zero_counts(ops, csim)
+        snaps, errs = [clone_layers(chip)], []
+        for xs, ts in data:
+            errs.append(chip.train_step(xs, ts, lr=LR))
+            snaps.append(clone_layers(chip))
+        torch.cuda.synchronize()
+        steps, captures = read_counts(ops), csim.capture_counts()
+    finally:
+        chip_mod.kernel_ops = ops
+    if steps != {"crossbar_fwd_stacked": 10, "crossbar_bwd_stacked": 8,
+                 "pulse_update_stacked": 8} or captures:
+        raise AssertionError(f"faulted steps launched {steps}, captured "
+                             f"{captures}: expected the eager path, 5 + 4 "
+                             f"+ 4 per step and no capture")
+    S = len(chip.placement.stages)
+    for i, ((xs, ts), err) in enumerate(zip(data, errs)):
+        flips[f"step {i}"] = check_train_step(
+            chip, rec, i * S, snaps[i], snaps[i + 1], xs, ts, err, spec,
+            rule, LR)
+        check_stuck(snaps[i + 1], masks, f"after step {i}")
+    step_ms = cuda_ms(lambda: chip.train_step(data[0][0], data[0][1],
+                                              lr=LR), iters=3, warmup=1)
+    print(f"faulted chip (mnist_class, {json.dumps(FAULTS)}): {stuck} stuck "
+          f"cells exact after injection and each step; launches: wave "
+          f"{json.dumps(wave)}, 2 steps {json.dumps(steps)} (eager although "
+          f"compiled=True, no capture); held against plain (flips): "
+          + json.dumps(flips))
+    print(f"faulted chip train_step mnist_class x{FARM_BATCH} "
+          f"[{card_line()}]: {step_ms} ms")
+    return {"fwd": 5 + 10, "bwd": 8, "pulse": 8,
+            "step_ms": step_ms, "stuck_cells": stuck}
+
+
+class LaunchRecorder:
+    """Stands in for ``kernels.ops`` inside ``sim.compiled`` or
+    ``sim.cluster`` and keeps, for every launch of the named wrappers made
+    outside a graph capture, copies of its operands (taken before the
+    launch: an update may write them later), its keyword arguments, its
+    result, and each operand's address and contiguity.  It launches
+    nothing itself."""
+
+    def __init__(self, ops, names):
+        self._ops, self.names, self.calls = ops, names, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._ops, name)
+        if name not in self.names:
+            return fn
+
+        def record(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
+            seen = [(a.data_ptr(), a.is_contiguous()) for a in args]
+            inputs = [a.clone() for a in args]
+            out = fn(*args, **kwargs)
+            self.calls.append((name, inputs, kwargs, out.clone(), seen))
+            return out
+        return record
+
+
+def check_launches(xbk, calls, what) -> dict[str, float]:
+    """Hold every recorded launch against its kernel's plain version on
+    the same operands (the chip axis folded into the core stack).
+    Returns the largest difference per kernel."""
+    errs: dict[str, float] = {}
+    for name, args, kwargs, out, _ in calls:
+        base, defaults = FARM_PLAIN[name]
+        fold = [a.reshape(-1, *a.shape[2:]) if a.dim() == 4 else a
+                for a in args]
+        want = getattr(xbk, f"{base}_plain")(*fold, **{**defaults, **kwargs})
+        err = close(out.reshape(want.shape), want,
+                    f"{what} {name} {tuple(args[0].shape)}")
+        errs[base] = max(errs.get(base, 0.0), err)
+    return errs
+
+
+def envelope(farm) -> tuple[torch.Tensor, torch.Tensor]:
+    return farm._stacks.g_plus.clone(), farm._stacks.g_minus.clone()
+
+
+def check_in_envelope(farm, calls, aggregation: int, what) -> None:
+    """The conductance operands of every recorded fwd/bwd launch but the
+    ``aggregation`` launches are a stage's (C, T_s) block of the farm's
+    envelope itself, contiguous — never a copy."""
+    st = farm._stacks
+    blocks = {st.g_plus[s, :st.chips * m.T].data_ptr()
+              for s, m in enumerate(st.stage_maps)}
+    blocks |= {st.g_minus[s, :st.chips * m.T].data_ptr()
+               for s, m in enumerate(st.stage_maps)}
+    hits = sum(1 for name, _, _, _, seen in calls
+               if name != "crossbar_dw_stacked"
+               and all(p in blocks and c for p, c in seen[1:3]))
+    expected = sum(1 for c in calls
+                   if c[0] != "crossbar_dw_stacked") - aggregation
+    if hits != expected or not hits:
+        raise AssertionError(f"{what}: {hits} fwd/bwd launches on the "
+                             f"envelope's own blocks, expected {expected}")
+
+
+def farm_train_path(ops, csim, cluster, build_chip, gen) -> dict:
+    """Farm training (module docstring, step 13)."""
+    from repro_torch.kernels import crossbar as xbk
+    C, B = FARM_CHIPS, FARM_BATCH
+    farm = cluster.build_farm("mnist_class", C, seed=SEED, device="cuda")
+    eager = cluster.build_farm("mnist_class", C, seed=SEED, device="cuda",
+                               compiled=False)
+    serial = build_chip("mnist_class", seed=SEED, device="cuda")
+    S = len(farm.placement.stages)
+    names = tuple(FARM_PLAIN)
+    data = [(uniform((B, 784), -0.5, 0.5, gen),
+             uniform((B, 10), -0.5, 0.5, gen)) for _ in range(2)]
+    # compiled: counts at 0, two steps, read
+    crec = LaunchRecorder(ops, names)
+    befores, afters, errs_c = [], [], []
+    csim.kernel_ops = crec
+    try:
+        zero_counts(ops, csim)
+        for x, t in data:
+            befores.append(envelope(farm))
+            errs_c.append(farm.train_step(x, t, lr=LR))
+            afters.append(envelope(farm))
+        torch.cuda.synchronize()
+        launches_c, captures = read_counts(ops), csim.capture_counts()
+    finally:
+        csim.kernel_ops = ops
+    want_c = {"crossbar_fwd_stacked": 2 * S, "crossbar_bwd_stacked": 2 * S,
+              "crossbar_dw_stacked": 2 * S}
+    if launches_c != want_c or list(captures.values()) != [1] \
+            or next(iter(captures))[2:] != ((C, B // C, 784), "none"):
+        raise AssertionError(f"compiled farm steps launched {launches_c}, "
+                             f"captured {captures}: expected {want_c} and "
+                             f"one capture")
+    # eager: counts at 0, the same two steps from the same conductances
+    erec = LaunchRecorder(ops, names)
+    errs_e, afters_e = [], []
+    cluster.kernel_ops = erec
+    try:
+        zero_counts(ops, csim)
+        for (x, t), (gp, gm) in zip(data, befores):
+            eager._stacks.g_plus.copy_(gp)
+            eager._stacks.g_minus.copy_(gm)
+            errs_e.append(eager.train_step(x, t, lr=LR))
+            afters_e.append(envelope(eager))
+        torch.cuda.synchronize()
+        launches_e = read_counts(ops)
+    finally:
+        cluster.kernel_ops = ops
+    want_e = dict(want_c, crossbar_fwd_stacked=2 * (S + 1))
+    if launches_e != want_e:
+        raise AssertionError(f"eager farm steps launched {launches_e}, "
+                             f"expected {want_e}")
+    # every launch against its plain version; on the envelope itself
+    errs = check_launches(xbk, crec.calls, "compiled farm")
+    for k, v in check_launches(xbk, erec.calls, "eager farm").items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    check_in_envelope(farm, crec.calls, 0, "compiled farm")
+    check_in_envelope(eager, erec.calls, 2, "eager farm")
+    # compiled against eager, step by step from the same conductances
+    unit = MAX_DW / LEVELS
+    dws = [r[3] for r in erec.calls if r[0] == "crossbar_dw_stacked"]
+    ce_cells, ce_err = 0, 0.0
+    for i in range(2):
+        ce_err = max(ce_err, float((errs_c[i] - errs_e[i]).abs().max()))
+        for j, m in enumerate(reversed(farm._stacks.stage_maps)):
+            s = S - 1 - j
+            counts = (2.0 * LR / B * dws[i * S + j].double().sum(0)
+                      / unit).repeat(C, 1, 1)
+            n = C * m.T
+            ce_cells += check_conductances(
+                (afters[i][0][s, :n], afters[i][1][s, :n]),
+                (afters_e[i][0][s, :n], afters_e[i][1][s, :n]), counts,
+                f"compiled farm step {i} stage {s} vs eager")
+    if not ce_err <= G_ATOL:
+        raise AssertionError(f"compiled farm error vs eager: {ce_err}")
+    # the farm against the serial compiled chip on the first step
+    grec = GraphRecorder(ops)
+    csim.kernel_ops = grec
+    try:
+        err_s = serial.train_step(data[0][0], data[0][1], lr=LR)
+    finally:
+        csim.kernel_ops = ops
+    serial_err = float((errs_c[0] - err_s).abs().max())
+    if not serial_err <= G_ATOL:
+        raise AssertionError(f"farm error vs serial chip: {serial_err}")
+    excused = 0
+    for (xs, ds, lr_t, _), st in zip(grec.run[:S],
+                                     reversed(serial.placement.stages)):
+        counts = xbk.pulse_counts_plain(xs, ds, lr=lr_t, max_dw=MAX_DW,
+                                        levels=LEVELS)
+        T = counts.shape[0]
+        excused += check_conductances(
+            (afters[0][0][st.index, :T], afters[0][1][st.index, :T]),
+            (st.g_plus, st.g_minus), counts,
+            f"farm vs serial chip stage {st.index}")
+    if not (farm.replicas_in_sync() and eager.replicas_in_sync()):
+        raise AssertionError("farm replicas out of lockstep")
+    farm.train_step(data[1][0], data[1][1], lr=LR, reconcile="int8")
+    if not farm.replicas_in_sync():
+        raise AssertionError("int8 reconciliation broke the lockstep")
+    rep = farm.report()
+    cmp_ = {**rep.compare_chip_sum(), **rep.compare_hw()}
+    if not {"train_step_time", "train_energy", "reconcile_bits",
+            "train_lockstep"} <= set(cmp_) \
+            or not all(v <= 0.01 for v in cmp_.values()):
+        raise AssertionError(f"farm report vs farm_cost: {cmp_}")
+    times = {
+        "compiled farm step ms": cuda_ms(
+            lambda: farm.train_step(data[0][0], data[0][1], lr=LR),
+            iters=5, warmup=2),
+        "eager farm step ms": cuda_ms(
+            lambda: eager.train_step(data[0][0], data[0][1], lr=LR),
+            iters=3, warmup=1),
+        "serial compiled chip step ms": cuda_ms(
+            lambda: serial.train_step(data[0][0], data[0][1], lr=LR),
+            iters=5, warmup=2)}
+    times.update({k.replace(" ms", " samples/s"): B / v * 1e3
+                  for k, v in list(times.items())})
+    prof = profile_device(lambda: farm.train_step(data[0][0], data[0][1],
+                                                  lr=LR))
+    print(f"farm training (mnist_class, {C} chips, batch {B}): launches "
+          f"compiled {json.dumps(launches_c)} + 1 capture, eager "
+          f"{json.dumps(launches_e)} (2 steps each); every launch held "
+          f"against plain {json.dumps(errs)}, on the envelope's own "
+          f"blocks; compiled vs eager: max |err| {ce_err}, {ce_cells} cells "
+          f"one pulse apart; vs the serial compiled chip: max |err| "
+          f"{serial_err}, {excused} excused cells (count within 1e-4 of "
+          f"k + 1/2); replicas in sync (int8 too); report vs farm_cost "
+          + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
+    print(f"farm training times [{card_line()}]: " + json.dumps(times))
+    print(f"profile, compiled farm train_step mnist_class {C} chips x "
+          f"{B // C} (profiler on): " + json.dumps(prof))
+    return {"farm": farm, "fwd": launches_c["crossbar_fwd_stacked"]
+            + launches_e["crossbar_fwd_stacked"],
+            "bwd": 4 * S, "dw": 4 * S, "errs": errs,
+            "excused": excused, **times,
+            "idle_share": prof["device_idle_share"]}
+
+
+def farm_serve_path(ops, csim, cluster, farm, mlp_forward, spec,
+                    gen) -> dict:
+    """Farm serving (module docstring, step 14)."""
+    from repro_torch.runtime.serve_loop import RequestQueue
+    C, Q, m = FARM_CHIPS, SERVE_REQUESTS, SERVE_M
+    S = len(farm.placement.stages)
+    x = uniform((Q * m, 784), -0.5, 0.5, gen)
+    reqs = list(x.reshape(Q, m, 784))
+
+    def session(f):
+        queue = RequestQueue(reqs)
+        stats = cluster.FarmServer(f).run(queue)
+        return torch.stack(queue.results()), stats
+    beats = S - 1 + Q // C
+    zero_counts(ops, csim)
+    out_c, stats_c = session(farm)
+    torch.cuda.synchronize()
+    launches_c, captures = read_counts(ops), csim.capture_counts()
+    if launches_c != {"crossbar_fwd_stacked": beats} \
+            or list(captures.values()) != [1] \
+            or next(iter(captures))[0] != "serve_scan":
+        raise AssertionError(f"compiled session launched {launches_c}, "
+                             f"captured {captures}: expected one launch a "
+                             f"beat ({beats}) and one program")
+    eager = cluster.build_farm("mnist_class", C, seed=SEED, device="cuda",
+                               compiled=False)
+    eager._stacks.g_plus.copy_(farm._stacks.g_plus)
+    eager._stacks.g_minus.copy_(farm._stacks.g_minus)
+    zero_counts(ops, csim)
+    out_e, stats_e = session(eager)
+    torch.cuda.synchronize()
+    launches_e = read_counts(ops)
+    if launches_e != {"crossbar_fwd_stacked": 2 * beats}:
+        raise AssertionError(f"eager server launched {launches_e}, "
+                             f"expected 2 a beat ({2 * beats})")
+    if not torch.equal(out_c, out_e) or stats_c != stats_e:
+        raise AssertionError(f"compiled session and eager server differ: "
+                             f"{float((out_c - out_e).abs().max())}, "
+                             f"{stats_c} vs {stats_e}")
+    if stats_c["beats"] != beats or stats_c["retired"] != Q * m \
+            or not abs(stats_c["beat_us"] - 0.77) <= 0.0077:
+        raise AssertionError(f"serving stats {stats_c}")
+    chip0 = farm.extract_chip(0)
+    wave = chip0.infer(x, count=False)
+    flips = check_chip_wave(chip0, x, wave, mlp_forward, spec)
+    served = out_c.reshape(Q * m, -1)
+    serve_err = close(served, wave, "served outputs vs the chip's wave")
+    t0 = time.perf_counter()
+    session(farm)
+    torch.cuda.synchronize()
+    host_beat_us = (time.perf_counter() - t0) / beats * 1e6
+    times = {"compiled session ms": cuda_ms(lambda: session(farm), iters=5,
+                                            warmup=1),
+             "eager session ms": cuda_ms(lambda: session(eager), iters=2,
+                                         warmup=1),
+             "compiled session host us per beat": host_beat_us}
+    times["compiled session device samples/s"] = \
+        Q * m / times["compiled session ms"] * 1e3
+    prof = profile_device(lambda: session(farm))
+    print(f"farm serving (mnist_class, {C} chips, {Q} requests of {m}): "
+          f"{beats} beats, launches compiled {json.dumps(launches_c)} (1 a "
+          f"beat, one program), eager {json.dumps(launches_e)} (2 a beat); "
+          f"outputs and stats equal; vs the chip's wave max |err| "
+          f"{serve_err}, vs mlp_forward {flips} samples after a boundary "
+          f"flip; stats " + json.dumps(stats_c))
+    print(f"farm serving times [{card_line()}]: " + json.dumps(times))
+    print("profile, compiled farm serving session (profiler on): "
+          + json.dumps(prof))
+    return {"fwd": launches_c["crossbar_fwd_stacked"]
+            + launches_e["crossbar_fwd_stacked"], "err": serve_err,
+            **times, "idle_share": prof["device_idle_share"]}
+
+
 def profile_device(fn, reps: int = 3) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
     (``torch.profiler``), and the device's busy share of their span (CUDA
@@ -2788,7 +3239,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     from repro_torch.launch.chipsim import build_chip
-    from repro_torch.sim import chip as chip_mod, compiled as csim
+    from repro_torch.sim import chip as chip_mod, cluster
+    from repro_torch.sim import compiled as csim
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2912,6 +3364,17 @@ def main() -> int:
     lm = lm_path(ops)
     phase_s["LM serving path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    faulted = faulted_chip_path(ops, csim, chip_mod, build_chip, PAPER_SPEC,
+                                mlp_forward, paper_backprop_step, gen)
+    phase_s["faulted chip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    farm_tr = farm_train_path(ops, csim, cluster, build_chip, gen)
+    phase_s["farm training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    farm_sv = farm_serve_path(ops, csim, cluster, farm_tr.pop("farm"),
+                              mlp_forward, PAPER_SPEC, gen)
+    phase_s["farm serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # -- wave and step times (device events, after warm-up), compiled
     # beside eager in this one run
@@ -3006,6 +3469,16 @@ def main() -> int:
                            "the 4 launches of one compiled mnist_class "
                            "training step at M=4096"),
     }
+    # the faulted chip's, the farm's and the farm server's launches
+    farm_counted = {
+        "crossbar_fwd": {"faulted chip": faulted["fwd"],
+                         "farm training": farm_tr["fwd"],
+                         "farm serving": farm_sv["fwd"]},
+        "crossbar_bwd": {"faulted chip": faulted["bwd"],
+                         "farm training": farm_tr["bwd"]},
+        "crossbar_dw": {"farm training": farm_tr["dw"]},
+        "pulse_update": {"faulted chip": faulted["pulse"]},
+    }
     counted = {
         "crossbar_fwd": launches + train_launches["crossbar_fwd_stacked"]
         + apply_launches["crossbar_fwd"]
@@ -3017,10 +3490,14 @@ def main() -> int:
         "pulse_update": train_launches["pulse_update_stacked"],
         "crossbar_train": ctrain_launches["crossbar_train_stacked"],
     }
+    for name, paths in farm_counted.items():
+        counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
     errs["crossbar_bwd"] = max(errs["crossbar_bwd"], apply_err)
     errs["crossbar_dw"] = max(errs["crossbar_dw"], apply_err)
+    for name, err in farm_tr["errs"].items():
+        errs[name] = max(errs[name], err)
     replaces = {"crossbar_fwd": 84, "crossbar_bwd": 145, "crossbar_dw": 207,
                 "pulse_update": 403, "crossbar_train": 308}
     entries = []
@@ -3072,6 +3549,8 @@ def main() -> int:
                 if r["kernel"] == "crossbar_bwd" and r.get("codes")]
         if name == "crossbar_train":
             entries[-1]["dx_runs"] = [r["dx_run"] for r in timed]
+        if name in farm_counted:
+            entries[-1]["launches_faults_and_farm"] = farm_counted[name]
     next(e for e in entries if e["name"] == "crossbar_dw")[
         "fp32_mnist_step_ms_device"] = [
             r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]

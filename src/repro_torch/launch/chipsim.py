@@ -16,8 +16,9 @@ time/energy/throughput from the *measured* simulator counters — including
 the cross-validation against `core/hw_model.py` (exits with an error above
 1%) and the energy-vs-K20 comparison.  Runs on ``--device cuda`` unless
 told otherwise, through the chip's default compiled executor (one captured
-CUDA graph per wave and step shape).  Fault injection waits for a later
-slice of the port.
+CUDA graph per wave and step shape); ``--stuck-on``, ``--stuck-off`` and
+``--variation-sigma`` build the chip with a `MemristorFaults` model seeded
+with ``--seed``, which runs the eager path.
 """
 from __future__ import annotations
 
@@ -29,15 +30,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.paper_apps import NETWORKS, PAPER_SPEC
 from repro_torch.core import crossbar as xb, hw_model as hw
+from repro_torch.runtime.faults import MemristorFaults
 from repro_torch.sim import VirtualChip
 
 
 def build_chip(app: str, *, share_small_layers: bool = False,
                seed: int = 0, device: str | torch.device = "cuda",
-               compiled: bool = True) -> VirtualChip:
+               compiled: bool = True,
+               faults: MemristorFaults | None = None) -> VirtualChip:
     """A VirtualChip holding ``app``'s Table I network with random
     conductances drawn from ``seed`` (on the CPU, so every device gets the
-    same weights); ``compiled=False`` gives the eager per-stage chip."""
+    same weights); ``compiled=False`` gives the eager per-stage chip,
+    ``faults`` a faulted one."""
     dims = NETWORKS[app]
     gen = torch.Generator().manual_seed(seed)
     layers = [xb.init_conductances(f, o, PAPER_SPEC, generator=gen,
@@ -45,7 +49,7 @@ def build_chip(app: str, *, share_small_layers: bool = False,
               for f, o in zip(dims, dims[1:])]
     return VirtualChip(layers, PAPER_SPEC, name=app,
                        share_small_layers=share_small_layers, device=device,
-                       compiled=compiled)
+                       compiled=compiled, faults=faults)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -71,18 +75,23 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.stuck_on or args.stuck_off or args.variation_sigma:
-        raise SystemExit("fault injection is not ported yet "
-                         "(ROADMAP Queue 1 item 4)")
+    faults = MemristorFaults(stuck_on=args.stuck_on,
+                             stuck_off=args.stuck_off,
+                             variation_sigma=args.variation_sigma,
+                             seed=args.seed)
     device = resolve_device(args.device)
     chip = build_chip(args.app, share_small_layers=args.share_small_layers,
-                      seed=args.seed, device=device)
+                      seed=args.seed, device=device, faults=faults)
     dims = NETWORKS[args.app]
     nmap = chip.placement.nmap
     print(f"== {args.app}: {dims} on the virtual chip ({device}) ==")
     print(f" placement: {len(nmap.layers)} stages, {nmap.cores} cores "
           f"({sum(l.total_cores for l in nmap.layers)} core-executions/"
           f"sample), {nmap.routed_outputs} routed outputs/sample")
+    if not faults.is_null:
+        print(f" faults: stuck_on={faults.stuck_on} "
+              f"stuck_off={faults.stuck_off} "
+              f"variation_sigma={faults.variation_sigma}")
 
     gen = torch.Generator().manual_seed(args.seed + 1)
     x = (torch.rand((args.samples, dims[0]), generator=gen) - 0.5).to(device)

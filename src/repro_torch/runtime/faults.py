@@ -1,0 +1,97 @@
+"""Device-level fault model of the memristor crossbars (port of
+``repro.runtime.faults.MemristorFaults``).
+
+`MemristorFaults` models stuck-on/stuck-off memristor fractions and
+per-core conductance variation as deterministic seeded masks.  The virtual
+chip (`repro_torch.sim.faults`) layers them into its stacked conductance
+arrays to measure accuracy against fault rate;
+``examples/torch_fault_sweep.py`` runs the sweep.
+
+The reference draws its masks with ``jax.random``; the port draws them
+from a ``torch.Generator`` on the CPU, so the two streams differ and the
+parity tests hand the reference's masks to the port (a subclass overriding
+`MemristorFaults.masks` and `MemristorFaults.core_scales`).  The
+preemption, straggler and step-timer hooks of the reference module wait
+for the LM-training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_MIX = 0x9E3779B97F4A7C15        # 2^64 / golden ratio, odd
+_SCALE_SALT = 1_000_003          # the reference's offset of the scale stream
+
+
+def _generator(seed: int, salt: int) -> torch.Generator:
+    """A CPU generator seeded with ``(seed * 0x9E3779B97F4A7C15 + salt)
+    mod 2^64``: one stream per (seed, salt)."""
+    return torch.Generator().manual_seed((seed * _MIX + salt) % 2 ** 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemristorFaults:
+    """Deterministic memristor-level fault model (seeded).
+
+    ``stuck_on``/``stuck_off`` are independent per-device probabilities: a
+    stuck-on cell reads the maximum conductance (``w_max`` in weight
+    units), a stuck-off cell reads zero, regardless of what was
+    programmed.  ``variation_sigma`` adds per-core multiplicative lognormal
+    conductance spread (process variation between fabricated cores).
+
+    Masks are pure functions of ``(seed, salt, shape)``, drawn on the CPU
+    from a generator seeded with ``(seed * 0x9E3779B97F4A7C15 + salt) mod
+    2^64`` (the stuck-on uniforms first, then the stuck-off ones); the
+    per-core scales from the one seeded with ``salt + 1_000_003``.  They
+    are moved to the conductances' device afterwards, so the same chip
+    breaks the same devices on the CPU and on the card.
+    """
+    stuck_on: float = 0.0
+    stuck_off: float = 0.0
+    variation_sigma: float = 0.0
+    seed: int = 0
+
+    @property
+    def is_null(self) -> bool:
+        return (self.stuck_on == 0.0 and self.stuck_off == 0.0
+                and self.variation_sigma == 0.0)
+
+    def masks(self, shape: tuple[int, ...], salt: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(stuck_on_mask, stuck_off_mask) boolean CPU tensors for one
+        conductance array.  Overlaps resolve stuck-off wins (an open
+        filament cannot conduct)."""
+        gen = _generator(self.seed, salt)
+        u_on = torch.rand(shape, generator=gen)
+        u_off = torch.rand(shape, generator=gen)
+        off = u_off < self.stuck_off
+        on = (u_on < self.stuck_on) & ~off
+        return on, off
+
+    def core_scales(self, n_cores: int, salt: int = 0) -> torch.Tensor:
+        """Per-core lognormal conductance scale factors (n_cores,) fp32, on
+        the CPU."""
+        if self.variation_sigma == 0.0:
+            return torch.ones(n_cores)
+        gen = _generator(self.seed, _SCALE_SALT + salt)
+        return torch.exp(self.variation_sigma
+                         * torch.randn(n_cores, generator=gen))
+
+    def apply(self, g: torch.Tensor, salt: int = 0, w_max: float = 1.0, *,
+              variation: bool = True) -> torch.Tensor:
+        """Overlay the fault pattern on a conductance array (a new tensor
+        on ``g``'s device).
+
+        ``g`` is (rows, cols) or a (cores, rows, cols) stack; per-core
+        variation applies along the leading stack axis, clipped to the
+        physical conductance range.  Pass ``variation=False`` when
+        *re-asserting* stuck masks on already-fabricated (already-scaled)
+        conductances — the stuck overlay is idempotent, the fabrication
+        scaling is not."""
+        if variation and self.variation_sigma > 0.0 and g.dim() == 3:
+            scales = self.core_scales(g.shape[0], salt).to(g)
+            g = torch.clamp(g * scales[:, None, None], 0.0, w_max)
+        on, off = (m.to(g.device) for m in self.masks(tuple(g.shape), salt))
+        g = torch.where(on, torch.full_like(g, w_max), g)
+        return torch.where(off, torch.zeros_like(g), g)

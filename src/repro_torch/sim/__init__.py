@@ -3,20 +3,31 @@
 
 Modules:
   placer    NetworkMap + layer params -> stacked conductance tiles per
-            stage; StageStacks (the padded envelope) and sub_placement
+            stage; StageStacks (the padded envelope, with a chip axis for
+            the farm) and sub_placement
   noc       static routing schedule model, per-link cycle/bit counters (copy)
   chip      VirtualChip: infer / pipelined streaming / train_step + counters
-  compiled  the compiled executor: one program per (topology, batch), a
-            captured CUDA graph on the card
+  compiled  the compiled executor: one program per (topology, shapes), a
+            captured CUDA graph on the card — chip and farm wave and step,
+            and the farm's serving beat
   report    SimReport: counters -> time/energy, hw_model cross-validation
             (copy)
+  faults    memristor stuck-on/stuck-off masks + per-core variation
+            injection
+  cluster   ChipFarm / FarmServer: N-chip data-parallel farm + serving
+            front-end, host-link accounting
 
 Each stage's phase runs as ONE launch of a hand-written kernel over its
-core stack: compiled, one forward launch per stage and one fused training
-launch per stage; eager (``compiled=False``), the forward plus one for a
-Fig.-14 aggregation stage, the backward and the pulse update.  Faults,
-the farm and the pipeline fabric wait for later slices (ROADMAP Queue 1).
+core stack — a farm's over every chip's cores, the chip axis folded into
+the stack: compiled, one forward launch per stage and one fused training
+launch per stage (a farm: one bwd and one dw launch, reconciled); eager
+(``compiled=False``), the forward plus one for a Fig.-14 aggregation
+stage, the backward and the pulse update (a farm: the dw).  The pipeline
+fabric waits for a later slice (ROADMAP Queue 1).
 """
 from repro_torch.sim.chip import VirtualChip  # noqa: F401
-from repro_torch.sim.placer import Placement, place_network  # noqa: F401
-from repro_torch.sim.report import SimReport  # noqa: F401
+from repro_torch.sim.cluster import ChipFarm, FarmServer, build_farm  # noqa: F401
+from repro_torch.sim.faults import inject_faults  # noqa: F401
+from repro_torch.sim.placer import (Placement, StageStacks,  # noqa: F401
+                                    build_stage_stacks, place_network)
+from repro_torch.sim.report import FarmReport, SimReport  # noqa: F401

@@ -28,7 +28,10 @@ slot), the backward through `crossbar_bwd_stacked` and the update through
 `core.crossbar.paper_backprop_step`, with identical counters that
 reproduce `hw_model`'s analytic time/energy to <= 1%.
 
-Not ported yet (ROADMAP Queue 1): fault injection.
+A chip built with ``faults`` (`runtime.faults.MemristorFaults`) carries
+the fault overlay from construction (`sim.faults.inject_faults`), runs the
+eager path whatever ``compiled`` says, and re-asserts the stuck masks in
+place after every update (`sim.faults.reapply`), as the reference does.
 
 Counting conventions (shared with the analytic model):
   * an aggregation sub-stage executes inside its layer's slot; its cores
@@ -50,6 +53,7 @@ from repro_torch.core.crossbar import (CORE_COLS, CORE_ROWS, CrossbarSpec,
 from repro_torch.core.mapping import map_network
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.sim import compiled as csim
+from repro_torch.sim.faults import inject_faults, reapply
 from repro_torch.sim.noc import NocTracker
 from repro_torch.sim.placer import (Placement, Stage, StageStacks,
                                     build_stage_stacks, place_network,
@@ -58,12 +62,13 @@ from repro_torch.sim.report import PhaseCounters, SimReport
 
 
 def _tile_cols(v: torch.Tensor, r: int, c: int, cols: int) -> torch.Tensor:
-    """(M, fan_out) per-neuron values -> (r*c, M, cols) per-core slabs
-    (slice t = i*c + j carries fan-out tile j, same for every fan-in i)."""
-    M, O = v.shape
+    """(..., M, fan_out) per-neuron values -> (..., r*c, M, cols) per-core
+    slabs (slice t = i*c + j carries fan-out tile j, same for every fan-in
+    i).  A leading chip axis is carried through."""
+    *lead, M, O = v.shape
     vp = torch.nn.functional.pad(v, (0, c * cols - O))
-    ct = vp.reshape(M, c, cols).transpose(0, 1)          # (c, M, cols)
-    return ct.repeat(r, 1, 1)
+    ct = vp.reshape(*lead, M, c, cols).transpose(-3, -2)  # (..., c, M, cols)
+    return ct.repeat(*[1] * len(lead), r, 1, 1)
 
 
 class VirtualChip:
@@ -86,9 +91,6 @@ class VirtualChip:
             raise NotImplementedError(
                 "the virtual chip implements exact aggregation only "
                 "(split_activation=False); see DESIGN.md 'Virtual chip'")
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 4")
         self.spec = spec
         self.name = name
         self.input_bits = input_bits
@@ -101,6 +103,10 @@ class VirtualChip:
             nmap = map_network(dims, rows, cols,
                                share_small_layers=share_small_layers)
             placement = place_network(layers, nmap, rows, cols)
+        self.faults = None
+        if faults is not None and not faults.is_null:
+            placement = inject_faults(placement, faults, w_max=spec.w_max)
+            self.faults = faults
         self.placement = placement
         self._stacks: StageStacks | None = None   # compiled-path envelope
         self.infer_counters = PhaseCounters(
@@ -113,9 +119,10 @@ class VirtualChip:
     # ------------------------------------------------------------------
 
     def _compiled_active(self) -> bool:
-        """Whether the compiled executor runs (``compiled=True``; the chip
-        refuses faults, which keep the reference on its eager path)."""
-        return self.compiled
+        """Whether the compiled executor runs: ``compiled=True`` and no
+        faults (the stuck-mask re-assert after each update keeps a faulted
+        chip on the eager path, as in the reference)."""
+        return self.compiled and self.faults is None
 
     def _get_stacks(self) -> StageStacks:
         """The padded stage stack, rebuilt whenever the placement's
@@ -345,6 +352,11 @@ class VirtualChip:
             c.record_phase("update", st.n_cores, M)
 
             delta = delta_prev
+
+        if self.faults is not None:
+            # pulse updates cannot move a stuck device: re-assert the
+            # masks so training works around, not through, broken cells.
+            reapply(self.placement, self.faults, w_max=spec.w_max)
         return delta
 
     def train_step(self, x, target, lr: float) -> torch.Tensor:

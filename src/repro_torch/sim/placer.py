@@ -270,11 +270,18 @@ class StageStacks:
 
     The port of the reference's compiled-executor layout, field for field:
 
-      * ``g_plus``/``g_minus`` — ``(S, T_max, rows, cols)`` fp32 conductance
-        stacks; cores beyond a stage's ``row_tiles*col_tiles`` grid are zero.
-        The compiled step updates them in place, and `scatter_back` makes
-        every `Stage` hold the view ``envelope[s, :T_s]`` (contiguous), so
-        kernel launches read and write the envelope's own memory;
+      * ``g_plus``/``g_minus`` — ``(S, chips*T_max, rows, cols)`` fp32
+        conductance stacks; cores beyond a stage's ``row_tiles*col_tiles``
+        grid are zero.  The compiled step updates them in place, and
+        `scatter_back` makes every `Stage` hold the view
+        ``envelope[s, :T_s]`` (contiguous), so kernel launches read and
+        write the envelope's own memory.  A farm of ``chips`` replicas
+        (``repro_torch.sim.cluster``) lays stage ``s``'s replicas
+        chip-major in the first ``chips*T_s`` slots, so every stage's
+        ``(chips, T_s)`` block is one contiguous view (`chip_views`) that a
+        launch reads and updates in place (the reference's
+        ``(S, C, T_max, ...)`` would make it strided whenever ``T_s <
+        T_max``);
       * int64 index maps on the placement's device, built in numpy, with
         the reference's always-zero slot convention: ``in_idx`` 0 is the
         bias slot, ``ds_idx`` uses ``N_pad``, ``dp_idx`` ``T_max*cols``,
@@ -296,12 +303,13 @@ class StageStacks:
     L: int               # padded input-vector length (bias slot 0 + lanes)
     N_pad: int           # padded output-lane count (max col_tiles*cols)
     out_dim: int         # fan_out of the last stage
+    chips: int           # replicas per stage (1: a chip; C: a farm)
     fan_in: tuple[int, ...]
     fan_out: tuple[int, ...]
     n_cores: tuple[int, ...]       # per-stage billed cores (grid + agg)
     routed: tuple[int, ...]        # per-stage routed outputs (NoC record)
     links: tuple[int, ...]         # per-stage emitting links (NoC record)
-    g_plus: torch.Tensor           # (S, T_max, rows, cols)
+    g_plus: torch.Tensor           # (S, chips*T_max, rows, cols)
     g_minus: torch.Tensor
     in_idx: torch.Tensor           # (S, T_max, rows)  h_ext -> core lines
     ds_idx: torch.Tensor           # (S, T_max, cols)  local_ext -> core cols
@@ -322,6 +330,18 @@ class StageStacks:
                 "prev_idx": self.prev_idx, "valid_out": self.valid_out,
                 "core_counts": self.core_counts}
 
+    def chip_views(self, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stage ``s``'s replicas as ``(chips, T_s, rows, cols)`` views of
+        the envelope.  They must be contiguous: a launch on a copy would
+        update nothing."""
+        T = self.stage_maps[s].T
+        views = tuple(g[s, :self.chips * T].view(self.chips, T, self.rows,
+                                                 self.cols)
+                      for g in (self.g_plus, self.g_minus))
+        if not all(v.is_contiguous() for v in views):
+            raise RuntimeError(f"stage {s}: envelope view is not contiguous")
+        return views
+
     def scatter_back(self, pl: Placement) -> None:
         """Point every `Stage` at its view of the envelope and mark the
         placement clean; the aliasing contract of `sub_placement` keeps
@@ -334,12 +354,12 @@ class StageStacks:
         self.built_version = pl.version
 
 
-def build_stage_stacks(pl: Placement) -> StageStacks:
+def build_stage_stacks(pl: Placement, chips: int = 1) -> StageStacks:
     """Pad a placement's ragged stage list into a `StageStacks` envelope.
 
     The index maps are built in numpy and moved once to the placement's
     device as int64 tensors; the conductances are copied into a fresh
-    envelope."""
+    envelope, ``chips`` replicas of each stage (chip-major)."""
     stages = pl.stages
     S = len(stages)
     rows, cols = pl.rows, pl.cols
@@ -355,12 +375,12 @@ def build_stage_stacks(pl: Placement) -> StageStacks:
     N_pad = max(max(c * cols for c in cs), max(fan_in))
     L = 1 + N_pad
 
-    gp = torch.zeros((S, T_max, rows, cols), dtype=torch.float32,
+    gp = torch.zeros((S, chips * T_max, rows, cols), dtype=torch.float32,
                      device=device)
     gm = torch.zeros_like(gp)
     for s, st in enumerate(stages):
-        gp[s, :Ts[s]] = st.g_plus
-        gm[s, :Ts[s]] = st.g_minus
+        gp[s, :chips * Ts[s]] = st.g_plus.repeat(chips, 1, 1)
+        gm[s, :chips * Ts[s]] = st.g_minus.repeat(chips, 1, 1)
 
     in_idx = np.zeros((S, T_max, rows), np.int64)       # 0 = bias slot (=0)
     ds_idx = np.full((S, T_max, cols), N_pad, np.int64)  # N_pad = zero col
@@ -405,7 +425,7 @@ def build_stage_stacks(pl: Placement) -> StageStacks:
         prev_idx=dev(prev_idx[s, :fan_in[s]])) for s in range(S))
     return StageStacks(
         S=S, T_max=T_max, r_max=r_max, c_max=c_max, rows=rows, cols=cols,
-        L=L, N_pad=N_pad, out_dim=fan_out[-1],
+        L=L, N_pad=N_pad, out_dim=fan_out[-1], chips=chips,
         fan_in=fan_in, fan_out=fan_out,
         n_cores=tuple(st.n_cores for st in stages),
         routed=tuple(st.lmap.routed_outputs for st in stages),

@@ -237,12 +237,19 @@ def test_conductance_helpers_match_reference():
 
 
 def test_training_and_faults_are_not_ported_yet():
-    # training is ported now (tests/test_torch_chip_train.py); faults are not
+    # training is ported (tests/test_torch_chip_train.py) and so are faults
+    # (tests/test_torch_faults.py): a faulted chip runs the eager path, a
+    # null fault model leaves the chip as it was
+    from repro_torch.runtime.faults import MemristorFaults
     _, tchip, _, x = _chips("kdd_anomaly")
     err = tchip.train_step(x, x, lr=0.1)
     assert tuple(err.shape) == x.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VirtualChip(tchip.layers(), device="cpu", faults=object())
+    faulted = VirtualChip(tchip.layers(), device="cpu",
+                          faults=MemristorFaults(stuck_off=0.1))
+    assert faulted.faults is not None and not faulted._compiled_active()
+    null = VirtualChip(tchip.layers(), device="cpu",
+                       faults=MemristorFaults())
+    assert null.faults is None and null._compiled_active()
 
 
 def test_placer_helpers_match_reference():

@@ -74,15 +74,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.paper_apps import PAPER_SPEC
     from repro_torch.core.crossbar import mlp_forward
-    from repro_torch.launch import chipsim, serve
+    from repro_torch.launch import chipsim, farm, serve
     from repro_torch.models import build_model
-    from repro_torch.sim import VirtualChip
+    from repro_torch.sim import ChipFarm, VirtualChip, build_farm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     layers = [{"g_plus": torch.zeros(4, 3), "g_minus": torch.zeros(4, 3)}]
     for fn in (lambda: VirtualChip(layers),
                lambda: chipsim.build_chip("kdd_anomaly"),
                lambda: mlp_forward(layers, torch.zeros(1, 4), PAPER_SPEC),
                lambda: chipsim.main(["--app", "kdd_anomaly"]),
+               lambda: ChipFarm(layers),
+               lambda: build_farm("kdd_anomaly", 2),
+               lambda: farm.main(["--app", "kdd_anomaly"]),
                lambda: build_model(get_reduced_config("qwen2-0.5b")),
                lambda: serve.main(["--arch", "qwen2-0.5b", "--reduced"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -98,7 +101,8 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
 
 def test_cli_runs_recognition_on_cpu_and_refuses_training(tmp_path, capsys):
     # training is ported now: --train-steps 0 is recognition only, the
-    # default takes the reference's one step; fault flags stay refused
+    # default takes the reference's one step; fault flags build a faulted
+    # chip (tests/test_torch_faults.py holds it against the reference)
     from repro_torch.launch import chipsim
     out = tmp_path / "rec.json"
     chipsim.main(["--app", "kdd_anomaly", "--device", "cpu", "--samples",
@@ -110,5 +114,7 @@ def test_cli_runs_recognition_on_cpu_and_refuses_training(tmp_path, capsys):
     chipsim.main(["--device", "cpu", "--samples", "2"])
     text = capsys.readouterr().out
     assert "train step 0" in text and "train step 1" not in text
-    with pytest.raises(SystemExit, match="fault injection"):
-        chipsim.main(["--device", "cpu", "--stuck-off", "0.1"])
+    chipsim.main(["--device", "cpu", "--stuck-off", "0.1"])
+    text = capsys.readouterr().out
+    assert "faults: stuck_on=0.0 stuck_off=0.1" in text
+    assert "train step 0" in text
