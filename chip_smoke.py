@@ -187,13 +187,51 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     the compiled chip wave of the same conductances and through it against
     ``mlp_forward`` under the 3-bit rule; the session's time (events),
     host time a beat, device samples/s and idle share;
-15. prints the wave and training-step times (CUDA events), compiled beside
+    Step 13 also times the farm step's 4 local dw launches alone (their
+    recorded operands, by device time) beside ``torch.bmm``'s, the plain
+    version's and the bound;
+15. pipeline training: ``build_pipeline("isolet_class")`` at the default
+    144-core budget splits into 2 chips, stages (0, 1) and (2, 3, 4) with
+    130 + 30 cores (asserted).  Two compiled ``train_step``s at batch 256
+    (counts at 0 before, read after: 5 forward + 5 fused launches a step;
+    the first step captures 4 programs, each slice's ``chip_forward`` and
+    ``chip_backward``, the second none), the same two steps on an eager
+    pipeline from the same conductances (9 forward, 5 of them stages and
+    4 aggregations, + 5 bwd + 5 pulse a step, no capture); each step bit
+    for bit the serial compiled ``VirtualChip`` step on the same data
+    (errors and conductances) and compiled bit for bit eager;
+    ``report().compare_hw()`` within 1 % of ``pipeline_cost``; then
+    mnist_class split 3 ways (1/1/2 stages) takes two compiled steps at
+    batch 4096, the second with ``n_micro=2`` (4 + 4 launches a step), bit
+    for bit the serial compiled chip.  Its kernels run the serial chip's
+    stage shapes (step 7 holds those against plain).  Step times and
+    samples/s beside the serial chip's, the compiled step's idle share;
+16. pipeline serving: ``PipelineServer`` on that isolet pipeline, 64
+    requests of 16 (counts at 0 before, read after): the compiled session
+    is one program of S - 1 + 64 beats, one forward launch a beat; an
+    eager server on a fresh eager pipeline holding the same conductances
+    launches what the owner map gives (per beat, each chip holding a
+    request 1, + 1 where its slice aggregates); equal outputs and stats
+    (beat 0.77 us within 1 %, latency S beats), held against the compiled
+    chip wave of the same conductances and through it against
+    ``mlp_forward``; the session's time, host time a beat, samples/s and
+    idle share;
+17. the farm of pipelines: ``PipelineFarm`` of 2 replicas of mnist_class
+    split over 2 chips at 2 x 1024, two compiled steps (counts at 0 before,
+    read after: the farm's 4 forward + 4 bwd + 4 dw a step, one capture),
+    every launch of the first held against its plain version on the
+    envelope's own blocks; replicas bit for bit in lockstep; the first
+    step within 1e-6 of the serial compiled chip's, one pulse excused
+    within 1e-4 of k + 1/2 (counted); its link bits equal to
+    ``pipeline_cost``'s; its step time;
+18. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those), one ``{"kernels": [...]}`` line with eight
     entries (the fp32 flash kernel as ``flash_attention_simt``; the
-    crossbar kernels' ``launches`` include steps 12-14, broken down in
-    ``launches_faults_and_farm``), and last ``{"ok": true, "device":
+    crossbar kernels' ``launches`` include steps 12-17, broken down in
+    ``launches_faults_and_farm`` and ``launches_pipeline``; ``crossbar_dw``
+    carries ``farm_step_local_dw``), and last ``{"ok": true, "device":
     {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
@@ -396,14 +434,18 @@ def check_pulse_counts(gp, gm, got, want, counts, what) -> int:
     return n_flip
 
 
-def code_flips(pre: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
+def code_flips(pre: torch.Tensor, got: torch.Tensor,
+               want: torch.Tensor | None = None) -> torch.Tensor:
     """Per-sample flags of 3-bit ADC codes of ``got`` that differ from the
-    codes of the reference value ``pre`` (taken before the ADC).  Raises if
+    codes of the reference value ``pre`` (taken before the ADC), or from
+    ``want``, the reference's own ADC output, where given (at a half-step
+    the ADC may round ``pre`` other than this function would).  Raises if
     a code differs where ``pre`` is not within BOUNDARY of a half-step
     boundary."""
     scale = 2.0 * ADC_RANGE / (2 ** ADC_BITS - 1)
     u = (pre.clamp(-ADC_RANGE, ADC_RANGE) + ADC_RANGE) / scale
-    flip = torch.round(u) != torch.round((got + ADC_RANGE) / scale)
+    flip = (torch.round(u) != torch.round((got + ADC_RANGE) / scale)
+            if want is None else want != got)
     dist = (u - torch.floor(u) - 0.5).abs() * scale
     bad = flip & (dist > BOUNDARY)
     if bool(bad.any()):
@@ -1276,6 +1318,7 @@ def check_chip_wave(chip, x, out, mlp_forward, spec) -> int:
     chip's own stage inputs) and end to end against plain ``mlp_forward``.
     Returns the number of samples downstream of a boundary code flip."""
     from repro_torch.core.crossbar import hard_sigmoid
+    from repro_torch.core.quantization import adc_quantize_ste
     acts, dps, wave_out = chip.forward_wave(x, count=False)
     if not torch.equal(wave_out, out):
         raise AssertionError("forward_wave and infer_stream disagree")
@@ -1287,10 +1330,20 @@ def check_chip_wave(chip, x, out, mlp_forward, spec) -> int:
         if not err <= ATOL:
             raise AssertionError(f"stage {s}: dp max |err| {err}")
         if s + 1 < len(layers):
-            flipped |= code_flips(hard_sigmoid(dp_ref), acts[s + 1])
+            pre = hard_sigmoid(dp_ref)
+            flipped |= code_flips(pre, acts[s + 1],
+                                  adc_quantize_ste(pre, spec.adc_bits))
     err = float((out - hard_sigmoid(dp_ref)).abs().max())
     if not err <= ATOL:
         raise AssertionError(f"chip output vs last stage: max |err| {err}")
+    # the plain path may round a code the other way at a boundary of its
+    # own values: mlp_forward over the first s + 1 layers leaves its last
+    # output before the ADC, which it then applies as above
+    for s in range(len(layers) - 1):
+        keep = ~flipped
+        pre = mlp_forward(layers[:s + 1], x, spec, device="cuda")[keep]
+        flipped[keep] = code_flips(pre, acts[s + 1][keep],
+                                   adc_quantize_ste(pre, spec.adc_bits))
     ref = mlp_forward(layers, x, spec, device="cuda")
     off = ((out - ref).abs() > ATOL).any(dim=-1)
     if bool((off & ~flipped).any()):
@@ -3040,6 +3093,8 @@ def farm_train_path(ops, csim, cluster, build_chip, gen) -> dict:
                 f"compiled farm step {i} stage {s} vs eager")
     if not ce_err <= G_ATOL:
         raise AssertionError(f"compiled farm error vs eager: {ce_err}")
+    local_dw = farm_dw_rows(xbk, [c for c in erec.calls
+                                  if c[0] == "crossbar_dw_stacked"][:S])
     # the farm against the serial compiled chip on the first step
     grec = GraphRecorder(ops)
     csim.kernel_ops = grec
@@ -3095,13 +3150,39 @@ def farm_train_path(ops, csim, cluster, build_chip, gen) -> dict:
           f"k + 1/2); replicas in sync (int8 too); report vs farm_cost "
           + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
     print(f"farm training times [{card_line()}]: " + json.dumps(times))
+    print(f"farm step's {S} local dw launches ({C} chips x {B // C}) "
+          f"[{card_line()}]: " + json.dumps(local_dw))
     print(f"profile, compiled farm train_step mnist_class {C} chips x "
           f"{B // C} (profiler on): " + json.dumps(prof))
     return {"farm": farm, "fwd": launches_c["crossbar_fwd_stacked"]
             + launches_e["crossbar_fwd_stacked"],
-            "bwd": 4 * S, "dw": 4 * S, "errs": errs,
+            "bwd": 4 * S, "dw": 4 * S, "errs": errs, "local_dw": local_dw,
             "excused": excused, **times,
             "idle_share": prof["device_idle_share"]}
+
+
+def farm_dw_rows(xbk, calls) -> dict:
+    """One farm step's local dw launches (recorded operands, the chip axis
+    folded into the core stack): the kernel's and ``torch.bmm``'s device
+    time (``graph_ms``), the plain version's time and the bound, per
+    launch and summed."""
+    rows = []
+    for _, (xs, ds), _, _, _ in calls:
+        xs, ds = xs.reshape(-1, *xs.shape[2:]), ds.reshape(-1, *ds.shape[2:])
+        T, M, K = xs.shape
+        N = ds.shape[2]
+        xt = xs.transpose(1, 2)
+        flop_ms, byte_ms = bound(T, M, K, N, "crossbar_dw")
+        rows.append({
+            "T": T, "M": M, "K": K, "N": N,
+            "ms_device": graph_ms(lambda: xbk.crossbar_dw_kernel(xs, ds)),
+            "plain_ms": cuda_ms(lambda: xbk.crossbar_dw_plain(xs, ds)),
+            "library_ms_device": graph_ms(lambda: torch.bmm(xt, ds)),
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"})
+    out = {k: sum(r[k] for r in rows) for k in
+           ("ms_device", "plain_ms", "library_ms_device", "bound_ms")}
+    return {**out, "rows": rows}
 
 
 def farm_serve_path(ops, csim, cluster, farm, mlp_forward, spec,
@@ -3177,6 +3258,329 @@ def farm_serve_path(ops, csim, cluster, farm, mlp_forward, spec,
             **times, "idle_share": prof["device_idle_share"]}
 
 
+# ---------------------------------------------------------------------------
+# Pipeline fabric: training, serving and the farm of pipelines
+# ---------------------------------------------------------------------------
+
+PIPE_APP, PIPE_BATCH = "isolet_class", 256
+PIPE_GROUPS, PIPE_CORES = ((0, 1), (2, 3, 4)), [130, 30]
+RAGGED_BATCH = 4096            # mnist_class split 3 ways (1/1/2 stages)
+PIPE_REQUESTS = 64             # serving: 64 requests of SERVE_M samples
+PF_PIPELINES, PF_CHIPS, PF_BATCH = 2, 2, 2048
+
+
+def layers_equal(a, b) -> bool:
+    return all(torch.equal(p[k], q[k]) for p, q in zip(a, b)
+               for k in ("g_plus", "g_minus"))
+
+
+def pipeline_train_path(ops, csim, fabric, build_chip, hw, gen) -> dict:
+    """Pipeline training (module docstring, step 15)."""
+    B = PIPE_BATCH
+    pipe = fabric.build_pipeline(PIPE_APP, seed=SEED, device="cuda")
+    eager = fabric.build_pipeline(PIPE_APP, seed=SEED, device="cuda",
+                                  compiled=False)
+    serial = build_chip(PIPE_APP, seed=SEED, device="cuda")
+    cores = [c.placement.n_cores for c in pipe.chips]
+    if pipe.groups != PIPE_GROUPS or cores != PIPE_CORES:
+        raise AssertionError(f"{PIPE_APP} split {pipe.groups} with cores "
+                             f"{cores}, expected {PIPE_GROUPS} {PIPE_CORES}")
+    S = len(pipe.placement.stages)
+    dims = pipe.placement.dims
+    data = [(uniform((B, dims[0]), -0.5, 0.5, gen),
+             uniform((B, dims[-1]), -0.5, 0.5, gen)) for _ in range(2)]
+    if not layers_equal(pipe.layers(), serial.layers()):
+        raise AssertionError("build_pipeline and build_chip drew different "
+                             "conductances from one seed")
+    # compiled: counts at 0, two steps, read
+    zero_counts(ops, csim)
+    errs_c, layers_c, caps = [], [], []
+    for x, t in data:
+        errs_c.append(pipe.train_step(x, t, lr=LR))
+        layers_c.append(clone_layers(pipe))
+        caps.append(csim.capture_counts())
+    torch.cuda.synchronize()
+    launches_c = read_counts(ops)
+    want_c = {"crossbar_fwd_stacked": 2 * S, "crossbar_train_stacked": 2 * S}
+    progs = sorted(k[0] for k in caps[0])
+    if launches_c != want_c or caps[1] != caps[0] \
+            or progs != ["chip_backward"] * 2 + ["chip_forward"] * 2 \
+            or set(caps[0].values()) != {1}:
+        raise AssertionError(f"compiled pipeline steps launched "
+                             f"{launches_c}, captured {caps}: expected "
+                             f"{want_c}, 4 programs in the first step and "
+                             f"none in the second")
+    # eager: counts at 0, the same two steps from the same conductances
+    zero_counts(ops, csim)
+    errs_e, layers_e = [], []
+    for x, t in data:
+        errs_e.append(eager.train_step(x, t, lr=LR))
+        layers_e.append(clone_layers(eager))
+    torch.cuda.synchronize()
+    launches_e, caps_e = read_counts(ops), csim.capture_counts()
+    aggs = sum(st.row_tiles > 1 for st in pipe.placement.stages)
+    want_e = {"crossbar_fwd_stacked": 2 * (S + aggs),
+              "crossbar_bwd_stacked": 2 * S, "pulse_update_stacked": 2 * S}
+    if launches_e != want_e or caps_e:
+        raise AssertionError(f"eager pipeline steps launched {launches_e}, "
+                             f"captured {caps_e}: expected {want_e}")
+    # compiled == eager == the serial compiled chip, bit for bit
+    for i, (x, t) in enumerate(data):
+        err_s = serial.train_step(x, t, lr=LR)
+        if not (torch.equal(errs_c[i], errs_e[i])
+                and layers_equal(layers_c[i], layers_e[i])):
+            raise AssertionError(f"pipeline step {i}: compiled and eager "
+                                 f"differ")
+        if not (torch.equal(errs_c[i], err_s)
+                and layers_equal(layers_c[i], serial.layers())):
+            raise AssertionError(f"pipeline step {i}: differs from the "
+                                 f"serial compiled chip")
+    # why the eager backward folds its fan-out tiles in order: the
+    # device's sum over them may reassociate (elements that differ from
+    # in-order adds, at this pipeline's (fan-in, fan-out) tile counts)
+    fold_order = {}
+    for st in pipe.placement.stages[1:]:
+        r, c = st.row_tiles, st.col_tiles
+        d = uniform((r, c, B, st.rows), -1.0, 1.0, gen)
+        seq = d[:, 0]
+        for j in range(1, c):
+            seq = seq + d[:, j]
+        fold_order[f"{r}x{c}"] = int((d.sum(dim=1) != seq).sum())
+    cmp_ = pipe.report().compare_hw()
+    if not {"train_step_time", "train_energy", "train_link_bits_fwd",
+            "train_link_bits_bwd", "span"} <= set(cmp_) \
+            or not all(v <= 0.01 for v in cmp_.values()):
+        raise AssertionError(f"pipeline report vs pipeline_cost: {cmp_}")
+    # the ragged 3-way split of mnist_class, two steps, the second
+    # microbatched, locked to the serial compiled chip
+    ragged = fabric.build_pipeline("mnist_class", n_chips=3, seed=SEED,
+                                   device="cuda")
+    rserial = build_chip("mnist_class", seed=SEED, device="cuda")
+    if sorted(len(g) for g in ragged.groups) != [1, 1, 2]:
+        raise AssertionError(f"mnist 3-way split {ragged.groups}")
+    rdata = [(uniform((RAGGED_BATCH, 784), -0.5, 0.5, gen),
+              uniform((RAGGED_BATCH, 10), -0.5, 0.5, gen))
+             for _ in range(2)]
+    zero_counts(ops, csim)
+    rsteps = []
+    for step, (x, t) in enumerate(rdata):
+        rsteps.append((ragged.train_step(x, t, lr=LR,
+                                         n_micro=2 if step else 1),
+                       clone_layers(ragged)))
+    torch.cuda.synchronize()
+    launches_r = read_counts(ops)
+    for step, ((x, t), (err, after)) in enumerate(zip(rdata, rsteps)):
+        if not (torch.equal(err, rserial.train_step(x, t, lr=LR))
+                and layers_equal(after, rserial.layers())):
+            raise AssertionError(f"ragged pipeline step {step} differs "
+                                 f"from the serial compiled chip")
+    if launches_r != {"crossbar_fwd_stacked": 8,
+                      "crossbar_train_stacked": 8}:
+        raise AssertionError(f"ragged pipeline launched {launches_r}")
+    x, t = data[0]
+    times = {
+        "compiled pipeline step ms": cuda_ms(
+            lambda: pipe.train_step(x, t, lr=LR), iters=5, warmup=2),
+        "eager pipeline step ms": cuda_ms(
+            lambda: eager.train_step(x, t, lr=LR), iters=3, warmup=1),
+        "serial compiled chip step ms": cuda_ms(
+            lambda: serial.train_step(x, t, lr=LR), iters=5, warmup=2)}
+    times.update({k.replace(" ms", " samples/s"): B / v * 1e3
+                  for k, v in list(times.items())})
+    prof = profile_device(lambda: pipe.train_step(x, t, lr=LR))
+    print(f"pipeline training ({PIPE_APP}, chips {list(PIPE_GROUPS)} with "
+          f"{PIPE_CORES} cores, batch {B}): launches compiled "
+          f"{json.dumps(launches_c)} + 4 captures in the first step, none "
+          f"in the second; eager {json.dumps(launches_e)} (2 steps each); "
+          f"compiled == eager == the serial compiled chip bit for bit; "
+          f"mnist_class split {list(ragged.groups)} at {RAGGED_BATCH} "
+          f"(second step n_micro 2) bit for bit the serial chip, launches "
+          f"{json.dumps(launches_r)}; torch.sum over fan-out tiles vs "
+          f"in-order adds, elements apart by (r x c) "
+          f"{json.dumps(fold_order)} of r x {B} x 400; report vs "
+          f"pipeline_cost "
+          + " ".join(f"{k}={v:.2e}" for k, v in cmp_.items()))
+    print(f"pipeline training times [{card_line()}]: " + json.dumps(times))
+    print(f"profile, compiled pipeline train_step {PIPE_APP} x {B} "
+          f"(profiler on): " + json.dumps(prof))
+    fwd = (launches_c["crossbar_fwd_stacked"]
+           + launches_e["crossbar_fwd_stacked"]
+           + launches_r["crossbar_fwd_stacked"])
+    return {"pipe": pipe, "fwd": fwd,
+            "train": launches_c["crossbar_train_stacked"]
+            + launches_r["crossbar_train_stacked"],
+            "bwd": launches_e["crossbar_bwd_stacked"],
+            "pulse": launches_e["pulse_update_stacked"], **times,
+            "idle_share": prof["device_idle_share"]}
+
+
+def pipeline_serve_path(ops, csim, fabric, chip_mod, pipe, mlp_forward,
+                        spec, gen) -> dict:
+    """Pipeline serving (module docstring, step 16)."""
+    from repro_torch.runtime.serve_loop import RequestQueue
+    Q, m = PIPE_REQUESTS, SERVE_M
+    S = len(pipe.placement.stages)
+    D = pipe.placement.dims[0]
+    x = uniform((Q * m, D), -0.5, 0.5, gen)
+    reqs = list(x.reshape(Q, m, D))
+
+    def session(p):
+        queue = RequestQueue(reqs)
+        stats = fabric.PipelineServer(p).run(queue)
+        return torch.stack(queue.results()), stats
+    beats = S - 1 + Q
+    zero_counts(ops, csim)
+    out_c, stats_c = session(pipe)
+    torch.cuda.synchronize()
+    launches_c, captures = read_counts(ops), csim.capture_counts()
+    if launches_c != {"crossbar_fwd_stacked": beats} \
+            or list(captures.values()) != [1] \
+            or next(iter(captures))[0] != "serve_scan":
+        raise AssertionError(f"compiled pipeline session launched "
+                             f"{launches_c}, captured {captures}: expected "
+                             f"one launch a beat ({beats}) and one program")
+    layers = clone_layers(pipe)
+    eager = fabric.ChipPipeline(layers, spec, name=PIPE_APP, device="cuda",
+                                compiled=False)
+    # eager launches from the owner map: per beat, each chip holding a
+    # request runs one launch, and one more when its slice aggregates
+    want_e = 0
+    for b in range(beats):
+        for g in eager.groups:
+            if any(0 <= b - s < Q for s in g):
+                want_e += 1 + any(eager.placement.stages[s].row_tiles > 1
+                                  for s in g)
+    zero_counts(ops, csim)
+    out_e, stats_e = session(eager)
+    torch.cuda.synchronize()
+    launches_e = read_counts(ops)
+    if launches_e != {"crossbar_fwd_stacked": want_e}:
+        raise AssertionError(f"eager pipeline server launched "
+                             f"{launches_e}, expected {want_e} from the "
+                             f"owner map")
+    if not torch.equal(out_c, out_e) or stats_c != stats_e:
+        raise AssertionError(f"compiled session and eager server differ: "
+                             f"{float((out_c - out_e).abs().max())}, "
+                             f"{stats_c} vs {stats_e}")
+    beat = stats_c["beat_us"]
+    if stats_c["beats"] != beats or stats_c["retired"] != Q * m \
+            or not abs(beat - 0.77) <= 0.0077 \
+            or stats_c["latency_us"] != S * beat:
+        raise AssertionError(f"pipeline serving stats {stats_c}")
+    chip = chip_mod.VirtualChip(layers, spec, name=PIPE_APP, device="cuda")
+    wave = chip.infer(x, count=False)
+    flips = check_chip_wave(chip, x, wave, mlp_forward, spec)
+    serve_err = close(out_c.reshape(Q * m, -1), wave,
+                      "pipeline served outputs vs the chip's wave")
+    t0 = time.perf_counter()
+    session(pipe)
+    torch.cuda.synchronize()
+    host_beat_us = (time.perf_counter() - t0) / beats * 1e6
+    times = {"compiled session ms": cuda_ms(lambda: session(pipe), iters=5,
+                                            warmup=1),
+             "eager session ms": cuda_ms(lambda: session(eager), iters=2,
+                                         warmup=1),
+             "compiled session host us per beat": host_beat_us}
+    times["compiled session device samples/s"] = \
+        Q * m / times["compiled session ms"] * 1e3
+    prof = profile_device(lambda: session(pipe))
+    print(f"pipeline serving ({PIPE_APP}, {pipe.n_chips} chips, {Q} "
+          f"requests of {m}): {beats} beats, launches compiled "
+          f"{json.dumps(launches_c)} (1 a beat, one program), eager "
+          f"{json.dumps(launches_e)} (from the owner map); outputs and "
+          f"stats equal; vs the chip's wave max |err| {serve_err}, vs "
+          f"mlp_forward {flips} samples after a boundary flip; stats "
+          + json.dumps(stats_c))
+    print(f"pipeline serving times [{card_line()}]: " + json.dumps(times))
+    print("profile, compiled pipeline serving session (profiler on): "
+          + json.dumps(prof))
+    return {"fwd": launches_c["crossbar_fwd_stacked"]
+            + launches_e["crossbar_fwd_stacked"], "err": serve_err,
+            **times, "idle_share": prof["device_idle_share"]}
+
+
+def pipeline_farm_path(ops, csim, fabric, build_chip, hw, gen) -> dict:
+    """The farm of pipelines (module docstring, step 17)."""
+    from repro_torch.kernels import crossbar as xbk
+    C, B = PF_PIPELINES, PF_BATCH
+    serial = build_chip("mnist_class", seed=SEED, device="cuda")
+    pf = fabric.PipelineFarm(clone_layers(serial), n_pipelines=C,
+                             n_chips=PF_CHIPS, name="mnist_class",
+                             device="cuda")
+    S = len(serial.placement.stages)
+    data = [(uniform((B, 784), -0.5, 0.5, gen),
+             uniform((B, 10), -0.5, 0.5, gen)) for _ in range(2)]
+    rec = LaunchRecorder(ops, tuple(FARM_PLAIN))
+    csim.kernel_ops = rec
+    afters, errs_f = [], []
+    try:
+        zero_counts(ops, csim)
+        for x, t in data:
+            errs_f.append(pf.train_step(x, t, lr=LR))
+            afters.append(envelope(pf.farm))
+        torch.cuda.synchronize()
+        launches, captures = read_counts(ops), csim.capture_counts()
+    finally:
+        csim.kernel_ops = ops
+    want = {"crossbar_fwd_stacked": 2 * S, "crossbar_bwd_stacked": 2 * S,
+            "crossbar_dw_stacked": 2 * S}
+    if launches != want or list(captures.values()) != [1]:
+        raise AssertionError(f"pipeline farm steps launched {launches}, "
+                             f"captured {captures}: expected {want} and "
+                             f"one capture")
+    errs = check_launches(xbk, rec.calls, "pipeline farm")
+    check_in_envelope(pf.farm, rec.calls, 0, "pipeline farm")
+    if not pf.replicas_in_sync():
+        raise AssertionError("pipeline farm replicas out of lockstep")
+    grec = GraphRecorder(ops)
+    csim.kernel_ops = grec
+    try:
+        err_s = serial.train_step(data[0][0], data[0][1], lr=LR)
+    finally:
+        csim.kernel_ops = ops
+    serial_err = float((errs_f[0] - err_s).abs().max())
+    if not serial_err <= G_ATOL:
+        raise AssertionError(f"pipeline farm error vs serial chip: "
+                             f"{serial_err}")
+    excused = 0
+    for (xs, ds, lr_t, _), st in zip(grec.run[:S],
+                                     reversed(serial.placement.stages)):
+        counts = xbk.pulse_counts_plain(xs, ds, lr=lr_t, max_dw=MAX_DW,
+                                        levels=LEVELS)
+        T = counts.shape[0]
+        for c in range(C):
+            excused += check_conductances(
+                (afters[0][0][st.index, c * T:(c + 1) * T],
+                 afters[0][1][st.index, c * T:(c + 1) * T]),
+                (st.g_plus, st.g_minus), counts,
+                f"pipeline farm replica {c} vs serial chip stage "
+                f"{st.index}")
+    frep, plink = pf.report()
+    pc = hw.pipeline_cost("mnist_class", list(serial.placement.dims),
+                          n_chips=PF_CHIPS, batch=B)
+    if (plink["link_bits_fwd"], plink["link_bits_bwd"]) != \
+            (pc.link_bits_fwd, pc.link_bits_bwd):
+        raise AssertionError(f"pipeline farm link bits {plink} vs "
+                             f"pipeline_cost {pc.link_bits_fwd}, "
+                             f"{pc.link_bits_bwd}")
+    cmp_ = {**frep.compare_chip_sum(), **frep.compare_hw()}
+    if not all(v <= 0.01 for v in cmp_.values()):
+        raise AssertionError(f"pipeline farm report vs farm_cost: {cmp_}")
+    step_ms = cuda_ms(lambda: pf.train_step(data[0][0], data[0][1], lr=LR),
+                      iters=5, warmup=2)
+    print(f"pipeline farm (mnist_class, {C} pipelines x {pf.groups}, "
+          f"batch {C} x {B // C}): launches {json.dumps(launches)} + 1 "
+          f"capture (2 steps); every launch held against plain "
+          f"{json.dumps(errs)}; replicas in sync; vs the serial compiled "
+          f"chip: max |err| {serial_err}, {excused} excused cells (count "
+          f"within 1e-4 of k + 1/2); link bits {json.dumps(plink)} == "
+          f"pipeline_cost; step {step_ms:.4f} ms [{card_line()}]")
+    return {"fwd": launches["crossbar_fwd_stacked"],
+            "bwd": launches["crossbar_bwd_stacked"],
+            "dw": launches["crossbar_dw_stacked"], "errs": errs,
+            "excused": excused, "step ms": step_ms}
+
+
 def profile_device(fn, reps: int = 3) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
     (``torch.profiler``), and the device's busy share of their span (CUDA
@@ -3239,7 +3643,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     from repro_torch.launch.chipsim import build_chip
-    from repro_torch.sim import chip as chip_mod, cluster
+    from repro_torch.sim import chip as chip_mod, cluster, fabric
     from repro_torch.sim import compiled as csim
 
     t_start = time.perf_counter()
@@ -3375,6 +3779,17 @@ def main() -> int:
                               mlp_forward, PAPER_SPEC, gen)
     phase_s["farm serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    pipe_tr = pipeline_train_path(ops, csim, fabric, build_chip, hw, gen)
+    phase_s["pipeline training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe_sv = pipeline_serve_path(ops, csim, fabric, chip_mod,
+                                  pipe_tr.pop("pipe"), mlp_forward,
+                                  PAPER_SPEC, gen)
+    phase_s["pipeline serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe_farm = pipeline_farm_path(ops, csim, fabric, build_chip, hw, gen)
+    phase_s["pipeline farm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # -- wave and step times (device events, after warm-up), compiled
     # beside eager in this one run
@@ -3490,13 +3905,27 @@ def main() -> int:
         "pulse_update": train_launches["pulse_update_stacked"],
         "crossbar_train": ctrain_launches["crossbar_train_stacked"],
     }
-    for name, paths in farm_counted.items():
+    # the pipeline fabric's launches: training (compiled, eager and the
+    # ragged mnist split), serving (compiled and eager), the farm of
+    # pipelines
+    pipe_counted = {
+        "crossbar_fwd": {"pipeline training": pipe_tr["fwd"],
+                         "pipeline serving": pipe_sv["fwd"],
+                         "pipeline farm": pipe_farm["fwd"]},
+        "crossbar_bwd": {"pipeline training": pipe_tr["bwd"],
+                         "pipeline farm": pipe_farm["bwd"]},
+        "crossbar_dw": {"pipeline farm": pipe_farm["dw"]},
+        "pulse_update": {"pipeline training": pipe_tr["pulse"]},
+        "crossbar_train": {"pipeline training": pipe_tr["train"]},
+    }
+    for name, paths in (*farm_counted.items(), *pipe_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
     errs["crossbar_bwd"] = max(errs["crossbar_bwd"], apply_err)
     errs["crossbar_dw"] = max(errs["crossbar_dw"], apply_err)
-    for name, err in farm_tr["errs"].items():
+    for name, err in (*farm_tr["errs"].items(),
+                      *pipe_farm["errs"].items()):
         errs[name] = max(errs[name], err)
     replaces = {"crossbar_fwd": 84, "crossbar_bwd": 145, "crossbar_dw": 207,
                 "pulse_update": 403, "crossbar_train": 308}
@@ -3551,9 +3980,11 @@ def main() -> int:
             entries[-1]["dx_runs"] = [r["dx_run"] for r in timed]
         if name in farm_counted:
             entries[-1]["launches_faults_and_farm"] = farm_counted[name]
-    next(e for e in entries if e["name"] == "crossbar_dw")[
-        "fp32_mnist_step_ms_device"] = [
-            r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]
+        entries[-1]["launches_pipeline"] = pipe_counted[name]
+    dw_entry = next(e for e in entries if e["name"] == "crossbar_dw")
+    dw_entry["fp32_mnist_step_ms_device"] = [
+        r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]
+    dw_entry["farm_step_local_dw"] = farm_tr["local_dw"]
     km = km_rows[0]     # the clustering path's own shape
     entries.append({
         "name": "kmeans_assign", "route": "cuda",

@@ -331,8 +331,13 @@ class VirtualChip:
             # stacks transposed (Eq. 7 / Fig. 9), one launch.
             ds = _tile_cols(local, r, ct, st.cols)
             dxs = kernel_ops.crossbar_bwd_stacked(ds, st.g_plus, st.g_minus)
-            dx = (dxs.reshape(r, ct, M, st.rows).sum(dim=1)
-                     .transpose(0, 1).reshape(M, r * st.rows))
+            # fan-in tile i sums its fan-out tiles in order, as the
+            # compiled program does (a device reduction may reassociate)
+            dxs = dxs.reshape(r, ct, M, st.rows)
+            dxg = dxs[:, 0]
+            for j in range(1, ct):
+                dxg = dxg + dxs[:, j]
+            dx = dxg.transpose(0, 1).reshape(M, r * st.rows)
             delta_prev = dx[:, 1:st.lmap.fan_in + 1]   # strip bias line
             c.record_phase("bwd", st.n_cores, M)
 

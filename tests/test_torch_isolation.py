@@ -53,13 +53,15 @@ def test_every_port_module_imports_without_jax_or_repro():
           "repro_torch.models.model", "repro_torch.runtime.serve_loop",
           "repro_torch.launch.serve", "repro_torch.kernels.flash_attention"}
     assert "repro_torch.sim.chip" in mods and lm <= set(mods), mods
-    assert len(mods) >= 49, mods
+    assert {"repro_torch.sim.fabric",
+            "repro_torch.launch.pipeline"} <= set(mods), mods
+    assert len(mods) >= 51, mods
 
 
 def test_sources_have_no_jax_or_repro_imports():
     examples = sorted((REPO / "examples").glob("torch_*.py"))
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
-    assert len(files) >= 54 and len(examples) >= 4
+    assert len(files) >= 56 and len(examples) >= 4
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -74,9 +76,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.paper_apps import PAPER_SPEC
     from repro_torch.core.crossbar import mlp_forward
-    from repro_torch.launch import chipsim, farm, serve
+    from repro_torch.launch import chipsim, farm, pipeline, serve
     from repro_torch.models import build_model
-    from repro_torch.sim import ChipFarm, VirtualChip, build_farm
+    from repro_torch.sim import (ChipFarm, ChipPipeline, PipelineFarm,
+                                 VirtualChip, build_farm, build_pipeline)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     layers = [{"g_plus": torch.zeros(4, 3), "g_minus": torch.zeros(4, 3)}]
     for fn in (lambda: VirtualChip(layers),
@@ -86,6 +89,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                lambda: ChipFarm(layers),
                lambda: build_farm("kdd_anomaly", 2),
                lambda: farm.main(["--app", "kdd_anomaly"]),
+               lambda: ChipPipeline(layers),
+               lambda: build_pipeline("isolet_class"),
+               lambda: PipelineFarm(layers),
+               lambda: pipeline.main(["--app", "isolet_class"]),
                lambda: build_model(get_reduced_config("qwen2-0.5b")),
                lambda: serve.main(["--arch", "qwen2-0.5b", "--reduced"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
