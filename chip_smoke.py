@@ -224,14 +224,43 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     step within 1e-6 of the serial compiled chip's, one pulse excused
     within 1e-4 of k + 1/2 (counted); its link bits equal to
     ``pipeline_cost``'s; its step time;
-18. prints the wave and training-step times (CUDA events), compiled beside
+18. the LM training path at qwen2-0.5b's full width (24 layers, d 896,
+    vocab 151936, tied head): (a) ``Trainer`` on cuda, bf16 compute,
+    remat "full", adamw on the launcher's cosine schedule, ``TokenStream(
+    151936, 2048, 4, seed=0)``, 3 steps with a checkpoint at step 2, the
+    flash counts at 0 before and read after (48 a step: 24 forward + 24
+    recomputed, all wgmma/chunked), loss and grad norm finite (the first
+    loss beside ln 151936), then a fresh ``Trainer`` on the same directory
+    resumes at step 2 and its step-3 parameters equal the uninterrupted
+    run's bit for bit; the step's time (CUDA events), tokens/s, a profile
+    with the idle share and one layer's attention backward (plain
+    ``flash_attention_vjp``) by CUDA events; (b) the crossbar kernel mode
+    (``crossbar=True, xbar_use_kernel=True``) with pulse_sgd at 4 x 1024
+    tokens, 2 ``make_train_step`` steps, the counts at 0 before and read
+    after (a step: 7 projections x 24 layers x 2 (remat) ``crossbar_fwd``,
+    168 ``crossbar_bwd`` and 168 ``crossbar_dw`` on int8 error codes,
+    48 flash); layer 0's 21 launches of the first step held against their
+    plain versions on their own operands within 1e-5 of sum_k |x_k||w_k|;
+    every conductance within [0, 4] after each step; its time, tokens/s,
+    the crossbar kernels' share of the device time, and each kernel at
+    each LM shape (kernel, plain, ``torch.bmm``, the bound); (c) one
+    reduced qwen2-0.5b ``make_train_step`` step in float32 compute on the
+    card against the same step on the CPU, standard and kernel mode
+    (counts checked: 28 + 14 + 14 crossbar, 8 fp32 flash launches), the
+    gradients within 1e-4 of each leaf's largest, a kernel-mode miss
+    excused only next to a quantizer code boundary (counted);
+19. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
-    kernels and only those), one ``{"kernels": [...]}`` line with eight
+    kernels and only those) — all taken before step 18 runs, which comes
+    last of the paths, so that its large allocations and long profiles
+    disturb nothing else —, one ``{"kernels": [...]}`` line with eight
     entries (the fp32 flash kernel as ``flash_attention_simt``; the
-    crossbar kernels' ``launches`` include steps 12-17, broken down in
-    ``launches_faults_and_farm`` and ``launches_pipeline``; ``crossbar_dw``
-    carries ``farm_step_local_dw``), and last ``{"ok": true, "device":
+    crossbar kernels' ``launches`` include steps 12-18, broken down in
+    ``launches_faults_and_farm``, ``launches_pipeline`` and
+    ``launches_lm_train``, the flash kernels' step 18's in
+    ``launches_lm_train``; ``crossbar_dw`` carries
+    ``farm_step_local_dw``), and last ``{"ok": true, "device":
     {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
@@ -3581,11 +3610,469 @@ def pipeline_farm_path(ops, csim, fabric, build_chip, hw, gen) -> dict:
             "excused": excused, "step ms": step_ms}
 
 
-def profile_device(fn, reps: int = 3) -> dict:
+# ---------------------------------------------------------------------------
+# The LM training path (qwen2-0.5b at full width): standard and crossbar
+# kernel modes, and the reduced step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 3
+XB_BATCH, XB_LEN, XB_STEPS = 4, 1024, 2
+XB_PROJECTIONS = 7       # wq, wk, wv, wo, wi, wg, wo of the MLP, per layer
+XB_BAR = 1e-5            # kernel vs plain, relative to sum_k |x_k| |w_k|
+CPU_STEP_BAR = 1e-4      # card vs CPU gradients, of each leaf's largest
+QUANT_NEAR = 1e-4        # a quantizer input this close to a code boundary
+
+
+def launch_train_config(cfg, optimizer: str, steps: int):
+    """The optimizer ``launch/train.py`` builds: ``make_optimizer(name,
+    cosine_schedule(3e-3, max(steps // 20, 1), steps))``."""
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    lr = cosine_schedule(3e-3, warmup_steps=max(steps // 20, 1),
+                         total_steps=steps)
+    return make_optimizer(optimizer, lr)
+
+
+def attention_bwd_ms(fak, cfg, B: int, S: int) -> float:
+    """Device time of one layer's attention backward at (B, S) in bf16
+    (``flash_attention_vjp``: the chunked function recomputed under
+    autograd over the config's 512 x 512 chunks), CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hd = cfg.head_dim
+
+    def rnd(heads):
+        return torch.randn((B, S, heads, hd), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = rnd(cfg.n_heads), rnd(cfg.n_kv_heads), \
+        rnd(cfg.n_kv_heads), rnd(cfg.n_heads)
+    return cuda_ms(lambda: fak.flash_attention_vjp(
+        q, k, v, do, scale=hd ** -0.5, causal=True, semantics="chunked",
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk), iters=3, warmup=1)
+
+
+def params_equal(a, b) -> tuple[bool, float]:
+    from repro_torch.dist.sharding import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    same = all(torch.equal(x, y) for x, y in zip(la, lb))
+    return same, max(float((x - y).abs().max()) for x, y in zip(la, lb))
+
+
+def lm_train_standard(ops, fak) -> dict:
+    """Step 18 (a): ``Trainer`` for the full qwen2-0.5b config on cuda (bf16
+    compute, remat "full"), adamw on the launcher's cosine schedule,
+    ``TokenStream(151936, 2048, 4, seed=0)``, 3 steps with a checkpoint at
+    step 2, the flash counts at 0 before and read after (per step 24
+    forward launches + 24 recomputed, all wgmma/chunked); a fresh Trainer
+    on the same directory resumes at step 2 and its step-3 parameters equal
+    the uninterrupted run's bit for bit."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import Trainer, make_train_step
+    cfg = get_config(LM_ARCH)
+    stream = TokenStream(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=SEED)
+    per_step = 2 * cfg.n_layers
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(cfg, launch_train_config(cfg, "adamw",
+                                                   TRAIN_STEPS),
+                          ckpt_dir=d, ckpt_every=2, seed=SEED,
+                          device="cuda")
+        zero_flash_counts(ops)
+        t0 = time.perf_counter()
+        state, hist = trainer.run(stream, TRAIN_STEPS, log_every=1)
+        run_s = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+        routes = dict(fak_routes())
+        check_flash_counts(ops, per_step * TRAIN_STEPS, "wgmma",
+                           f"{TRAIN_STEPS} training steps")
+        for h in hist:
+            if not (math.isfinite(h["loss"]) and math.isfinite(
+                    h["grad_norm"])):
+                raise AssertionError(f"training step {h['step']}: loss "
+                                     f"{h['loss']}, grad norm "
+                                     f"{h['grad_norm']}")
+        resumed = Trainer(cfg, launch_train_config(cfg, "adamw",
+                                                   TRAIN_STEPS),
+                          ckpt_dir=d, ckpt_every=2, seed=SEED,
+                          device="cuda")
+        r_state = resumed.restore_or_init()
+        if r_state.step != 2:
+            raise AssertionError(f"resumed at step {r_state.step}, not 2")
+        r_state, r_hist = resumed.run(stream, TRAIN_STEPS, log_every=1)
+        same, diff = params_equal(r_state.params, state.params)
+        if not same:
+            raise AssertionError(f"resumed step-3 parameters differ from the "
+                                 f"uninterrupted run's by up to {diff}")
+        if r_hist[-1]["loss"] != hist[-1]["loss"]:
+            raise AssertionError("resumed step-3 loss differs")
+    del r_state, resumed
+    # the step alone: CUDA events over 2 steps after the run's warm-up
+    step = make_train_step(trainer.model, trainer.opt)
+    batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
+    p, o = state.params, state.opt_state
+    ms = cuda_ms(lambda: step(p, o, batch, 0), iters=2, warmup=0)
+    prof = profile_device(lambda: step(p, o, batch, 0), reps=1)
+    bwd_ms = attention_bwd_ms(fak, cfg, TRAIN_BATCH, TRAIN_LEN)
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    out = {"steps": TRAIN_STEPS, "flash_attention launches": launches,
+           "flash_attention routes": routes,
+           "first loss": hist[0]["loss"], "ln vocab": math.log(
+               cfg.vocab_size),
+           "losses": [h["loss"] for h in hist],
+           "grad norms": [h["grad_norm"] for h in hist],
+           "run s (3 steps, checkpoint at 2)": run_s,
+           "resumed at step 2, step-3 parameters bit for bit": True,
+           "step ms": ms, "tokens/s": tokens / ms * 1e3,
+           "attention backward ms per layer": bwd_ms,
+           "attention backward ms per step": bwd_ms * cfg.n_layers,
+           "profile": prof}
+    print(f"LM training, standard (qwen2-0.5b full width, bf16 compute, "
+          f"remat full, {TRAIN_BATCH} x {TRAIN_LEN} tokens, adamw): "
+          f"{launches} flash_attention launches in {TRAIN_STEPS} steps "
+          f"({per_step} a step: {cfg.n_layers} forward + {cfg.n_layers} "
+          f"recomputed, all wgmma/chunked); first loss "
+          f"{hist[0]['loss']:.4f} (ln {cfg.vocab_size} = "
+          f"{math.log(cfg.vocab_size):.4f}), losses "
+          f"{[round(h['loss'], 4) for h in hist]}, grad norms finite; "
+          f"resumed at step 2, step-3 parameters bit for bit; step "
+          f"{ms:.3f} ms, {out['tokens/s']:.0f} tokens/s; attention backward "
+          f"{bwd_ms:.3f} ms a layer ({bwd_ms * cfg.n_layers:.3f} ms a step); "
+          f"profile span {prof['span_ms']:.3f} ms, busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['device_idle_share']:.3f} [{card_line()}]")
+    print("profile of the standard step (profiler on): "
+          + json.dumps(prof))
+    return out
+
+
+class Layer0Recorder:
+    """Keeps the operands and outputs of chosen kernel launches while the
+    main path runs: the first ``keep`` forward launches and the last
+    ``keep`` bwd and dw launches (layer 0's, in a step's forward and
+    backward), by wrapping the launchers that ``ops`` dispatches to."""
+
+    def __init__(self, xbk, keep: int):
+        import collections
+        self.xbk, self.keep = xbk, keep
+        self.orig = {n: getattr(xbk, f"{n}_kernel")
+                     for n in ("crossbar_fwd", "crossbar_bwd",
+                               "crossbar_dw")}
+        self.fwd: list = []
+        self.bwd = collections.deque(maxlen=keep)
+        self.dw = collections.deque(maxlen=keep)
+
+    def __enter__(self):
+        def wrap(name, store, first):
+            fn = self.orig[name]
+
+            def rec(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                if not first or len(store) < self.keep:
+                    store.append((args, kwargs, out))
+                return out
+            setattr(self.xbk, f"{name}_kernel", rec)
+        wrap("crossbar_fwd", self.fwd, True)
+        wrap("crossbar_bwd", self.bwd, False)
+        wrap("crossbar_dw", self.dw, False)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.xbk, f"{n}_kernel", fn)
+        return False
+
+
+def check_relative(got, want, mag, what) -> float:
+    """Raise unless |got - want| <= XB_BAR * mag everywhere (``mag`` the
+    sum of the terms' magnitudes); returns max |got - want| / mag."""
+    err = (got - want).abs()
+    if not bool((err <= XB_BAR * mag + 1e-30).all()):
+        raise AssertionError(f"{what}: max |err| {float(err.max())}, "
+                             f"relative {float((err / mag).max())}")
+    return float((err / mag.clamp_min(1e-30)).max())
+
+
+def check_layer0_launches(xbk, rec) -> dict:
+    """Each recorded launch against its plain version on its own operands,
+    within XB_BAR of sum_k |x_k| |w_k| (fp32 sums of up to 4864 terms in
+    other orders)."""
+    worst = {"crossbar_fwd": 0.0, "crossbar_bwd": 0.0, "crossbar_dw": 0.0}
+    for (xs, gp, gm), kw, y in rec.fwd:
+        want = xbk.crossbar_fwd_plain(xs, gp, gm, **kw)
+        mag = torch.matmul(xs.abs(), (gp - gm).abs())
+        worst["crossbar_fwd"] = max(worst["crossbar_fwd"], check_relative(
+            y, want, mag, f"layer-0 fwd {tuple(xs.shape)} x "
+                          f"{tuple(gp.shape)}"))
+    for (dys, gp, gm), kw, dx in rec.bwd:
+        want = xbk.crossbar_bwd_plain(dys, gp, gm, **kw)
+        d = xbk._dequant(dys, kw.get("dy_scale"))
+        mag = torch.matmul(d.abs(), (gp - gm).abs().transpose(1, 2))
+        worst["crossbar_bwd"] = max(worst["crossbar_bwd"], check_relative(
+            dx, want, mag, f"layer-0 bwd {tuple(dys.shape)} {dys.dtype}"))
+    for (xs, dys), kw, dw in rec.dw:
+        want = xbk.crossbar_dw_plain(xs, dys, **kw)
+        d = xbk._dequant(dys, kw.get("dy_scale"))
+        mag = torch.matmul(xs.abs().transpose(1, 2), d.abs())
+        worst["crossbar_dw"] = max(worst["crossbar_dw"], check_relative(
+            dw, want, mag, f"layer-0 dw {tuple(xs.shape)} {dys.dtype}"))
+    return worst
+
+
+def lm_crossbar_rows(xbk, rec) -> list[dict]:
+    """Kernel / plain / ``torch.bmm`` times (and device times) of the
+    recorded layer-0 launches at each distinct LM shape, beside the
+    bound."""
+    rows, seen = [], set()
+    for (xs, gp, gm), _, _ in rec.fwd:
+        key = ("crossbar_fwd",) + tuple(xs.shape) + (gp.shape[2],)
+        if key not in seen:
+            seen.add(key)
+            rows.append(time_shape(xbk, "qwen2-0.5b", xs, gp, gm))
+    for (dys, gp, gm), kw, _ in rec.bwd:
+        key = ("crossbar_bwd",) + tuple(dys.shape) + (gp.shape[1],)
+        if key not in seen:
+            seen.add(key)
+            rows.append(time_bwd_codes(xbk, dys, kw["dy_scale"], gp, gm))
+    for (xs, dys), kw, _ in rec.dw:
+        key = ("crossbar_dw",) + tuple(xs.shape) + (dys.shape[2],)
+        if key not in seen:
+            seen.add(key)
+            rows.append(time_dw_codes(xbk, xs, dys, kw["dy_scale"]))
+    return rows
+
+
+def lm_train_crossbar(ops, xbk) -> dict:
+    """Step 18 (b): the full config with ``crossbar=True,
+    xbar_use_kernel=True`` and pulse_sgd (the launcher's schedule) at
+    XB_BATCH x XB_LEN tokens (M = 4096), XB_STEPS steps of
+    ``make_train_step``, the crossbar counts at 0 before and read after:
+    per step 7 projections x 24 layers forward launches, twice (remat
+    "full"), and as many bwd and dw; layer 0's launches of the first step
+    held against plain; every conductance in [0, 4] after each step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.dist.sharding import tree_leaves
+    from repro_torch.models import build_model
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.checkpoint import _walk
+    cfg = get_config(LM_ARCH, crossbar=True, xbar_use_kernel=True)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = launch_train_config(cfg, "pulse_sgd", XB_STEPS)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    stream = TokenStream(cfg.vocab_size, XB_LEN, XB_BATCH, seed=SEED)
+    per_pass = XB_PROJECTIONS * cfg.n_layers
+    names = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")
+    for n in names:
+        getattr(ops, n).launches = 0
+    zero_flash_counts(ops)
+    metrics, ranges = [], []
+    for s in range(XB_STEPS):
+        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
+        if s == 0:
+            with Layer0Recorder(xbk, XB_PROJECTIONS) as rec:
+                params, opt_state, m = step(params, opt_state, batch, s)
+        else:
+            params, opt_state, m = step(params, opt_state, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+        g = [t for path, t in _walk(params)
+             if any(k in ("g_plus", "g_minus") for k in path)]
+        lo, hi = min(float(t.min()) for t in g), max(float(t.max())
+                                                     for t in g)
+        ranges.append((lo, hi))
+        if lo < 0.0 or hi > cfg.xbar_w_max:
+            raise AssertionError(f"crossbar step {s}: conductances in "
+                                 f"[{lo}, {hi}], outside [0, 4]")
+    launches = {n: getattr(ops, n).launches for n in names}
+    want = {"crossbar_fwd": 2 * per_pass * XB_STEPS,
+            "crossbar_bwd": per_pass * XB_STEPS,
+            "crossbar_dw": per_pass * XB_STEPS}
+    if launches != want:
+        raise AssertionError(f"crossbar kernel mode ran {launches}, "
+                             f"expected {want}")
+    flash = ops.flash_attention.launches
+    check_flash_counts(ops, 2 * cfg.n_layers * XB_STEPS, "wgmma",
+                       "crossbar-mode steps")
+    for mt in metrics:
+        if not (math.isfinite(mt["loss"]) and math.isfinite(
+                mt["grad_norm"])):
+            raise AssertionError(f"crossbar step: {mt}")
+    errs = check_layer0_launches(xbk, rec)
+    rows = lm_crossbar_rows(xbk, rec)
+    del rec
+    batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
+    ms = cuda_ms(lambda: step(params, opt_state, batch, 0), iters=2,
+                 warmup=0)
+    prof = profile_device(lambda: step(params, opt_state, batch, 0),
+                          reps=1, match=r"crossbar_(fwd|bwd|dw)")
+    share = prof["matched_ms"] / prof["device_busy_ms"]
+    tokens = XB_BATCH * XB_LEN
+    out = {"steps": XB_STEPS, "launches": launches,
+           "flash_attention launches": flash,
+           "layer-0 launches vs plain, max |err| / sum |x||w|": errs,
+           "conductance range after each step": ranges,
+           "losses": [m["loss"] for m in metrics],
+           "grad norms": [m["grad_norm"] for m in metrics],
+           "step ms": ms, "tokens/s": tokens / ms * 1e3,
+           "crossbar kernels' share of device time": share,
+           "profile": prof, "rows": rows,
+           "params": sum(t.numel() for t in tree_leaves(params))}
+    print(f"LM training, crossbar kernel mode (qwen2-0.5b full width, "
+          f"pulse_sgd, {XB_BATCH} x {XB_LEN} tokens, M = {tokens}): "
+          f"launches {json.dumps(launches)} in {XB_STEPS} steps "
+          f"({2 * per_pass} fwd, {per_pass} bwd, {per_pass} dw a step), "
+          f"{flash} flash launches; layer 0's launches vs plain (max |err| "
+          f"/ sum |x||w|, bar {XB_BAR}) {json.dumps(errs)}; conductances in "
+          f"{ranges}; losses {[round(m['loss'], 4) for m in metrics]}; step "
+          f"{ms:.3f} ms, {out['tokens/s']:.0f} tokens/s, crossbar kernels "
+          f"{share:.3f} of {prof['device_busy_ms']:.3f} ms busy, idle share "
+          f"{prof['device_idle_share']:.3f} [{card_line()}]")
+    print("profile of the crossbar-mode step (profiler on): "
+          + json.dumps(prof))
+    for r in rows:
+        print(f"  {r['kernel']} (M, K, N) = ({r['M']}, {r['K']}, {r['N']})"
+              f"{' int8 codes' if r.get('codes') else ''}: {r['ms']:.4f} ms "
+              f"(device {r['ms_device']:.4f}), plain {r['plain_ms']:.4f}, "
+              f"torch.bmm {r['library_ms']:.4f} (device "
+              f"{r['library_ms_device']:.4f}), bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    return out
+
+
+def count_near_boundaries(tq) -> tuple[dict, callable]:
+    """Wrap the port's activation and error quantizers to count inputs
+    within QUANT_NEAR of a code boundary; returns (counter, restore)."""
+    seen = {"n": 0}
+    fq, eq = tq.fake_quant, tq.error_quantize
+
+    def near(x, bits):
+        x = x.detach().double()
+        scale = x.abs().max() / (2 ** (bits - 1) - 1)
+        if float(scale) > 0:
+            r = (x / scale).abs()
+            seen["n"] += int(((r - torch.floor(r) - 0.5).abs()
+                              < QUANT_NEAR).sum())
+
+    def counted_fq(x, bits, *a, **kw):
+        near(x, bits)
+        return fq(x, bits, *a, **kw)
+
+    def counted_eq(x, bits=tq.ERROR_BITS, *a, **kw):
+        near(x, bits)
+        return eq(x, bits, *a, **kw)
+
+    tq.fake_quant, tq.error_quantize = counted_fq, counted_eq
+
+    def restore():
+        tq.fake_quant, tq.error_quantize = fq, eq
+    return seen, restore
+
+
+def lm_train_card_vs_cpu(ops) -> dict:
+    """Step 18 (c): one reduced qwen2-0.5b ``make_train_step`` step (sgd
+    0.1, float32 compute) on the card against the same step on the CPU,
+    from the same parameters and batch, in standard and kernel mode, the
+    counts at 0 before and read after.  The loss and grad norm within
+    1e-5 relative, each gradient leaf within CPU_STEP_BAR of its largest
+    magnitude, each new parameter within 1e-6 (1 + |p|) + 0.1 x that; in
+    kernel mode a miss is excused only where the card's quantizers saw an
+    input within QUANT_NEAR of a code boundary (then the loss within 1e-4
+    and each leaf within 10 % in the norm, counted)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import quantization as tq
+    from repro_torch.data import TokenStream
+    from repro_torch.dist.sharding import tree_leaves, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.optim import Optimizer, sgd
+    from repro_torch.runtime import make_train_step
+    out = {}
+    names = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")
+    for n in names:
+        getattr(ops, n).launches = 0
+    zero_flash_counts(ops)
+    for mode, kw in (("standard", {}),
+                     ("kernel", dict(crossbar=True, xbar_use_kernel=True))):
+        cfg = get_reduced_config(LM_ARCH, compute_dtype="float32", **kw)
+        p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(
+            SEED))
+        batch = TokenStream(cfg.vocab_size, 64, 4, seed=SEED).batch_at(0)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            base, seen_g = sgd(0.1), []
+
+            def update(grads, state, params, step=0, base=base,
+                       seen_g=seen_g):
+                seen_g.append([g.cpu() for g in tree_leaves(grads)])
+                return base.update(grads, state, params, step=step)
+
+            opt = Optimizer(base.init, update, "sgd")
+            params = tree_map(lambda t: t.to(dev, copy=True), p0)
+            seen, restore = count_near_boundaries(tq)
+            try:
+                params, _, m = make_train_step(build_model(cfg, dev), opt)(
+                    params, opt.init(params),
+                    {k: v.to(dev) for k, v in batch.items()}, 0)
+            finally:
+                restore()
+            runs[dev] = ({k: float(v) for k, v in m.items()}, seen_g[0],
+                         [t.cpu() for t in tree_leaves(params)], seen["n"])
+        (mc, gc, pc, near), (mp, gp, pp, _) = runs["cuda"], runs["cpu"]
+        err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(gc, gp))
+        perr = max(float(((a - b).abs() - 1e-6 * (1 + b.abs())).max()
+                         / (0.1 * g.abs().max()).clamp_min(1e-30))
+                   for a, b, g in zip(pc, pp, gp))
+        loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
+        gn_rel = abs(mc["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+        strict = (err <= CPU_STEP_BAR and perr <= CPU_STEP_BAR
+                  and loss_rel <= 1e-5 and gn_rel <= 1e-5)
+        if not strict:
+            nrel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(
+                b).clamp_min(1e-30)) for a, b in zip(gc, gp))
+            if mode == "standard" or near == 0 or loss_rel > 1e-4 \
+                    or nrel > 0.1:
+                raise AssertionError(f"card vs CPU ({mode}): gradient "
+                                     f"{err}, parameters {perr}, loss "
+                                     f"{loss_rel}, grad norm {gn_rel}, "
+                                     f"{near} near-boundary inputs")
+        out[mode] = {"max |grad err| / max |grad|": err,
+                     "new params, err over the bar's step part": perr,
+                     "loss rel": loss_rel, "grad norm rel": gn_rel,
+                     "strict": strict,
+                     "quantizer inputs near a boundary (card)": near}
+    launches = {n: getattr(ops, n).launches for n in names}
+    layers = get_reduced_config(LM_ARCH).n_layers
+    per_pass = XB_PROJECTIONS * layers
+    want = {"crossbar_fwd": 2 * per_pass, "crossbar_bwd": per_pass,
+            "crossbar_dw": per_pass}
+    if launches != want:
+        raise AssertionError(f"card vs CPU kernel mode ran {launches}, "
+                             f"expected {want}")
+    out["launches"] = launches
+    out["flash_attention launches"] = ops.flash_attention.launches
+    check_flash_counts(ops, 2 * 2 * layers, "simt", "card vs CPU steps")
+    print(f"LM training, card vs CPU (reduced qwen2-0.5b, float32 compute, "
+          f"one sgd step each in standard and kernel mode, bar "
+          f"{CPU_STEP_BAR} of each leaf's largest gradient): "
+          + json.dumps(out))
+    return out
+
+
+def lm_train_path(ops, xbk, fak) -> dict:
+    """The LM training path (module docstring, step 18)."""
+    return {"standard": lm_train_standard(ops, fak),
+            "crossbar": lm_train_crossbar(ops, xbk),
+            "card vs cpu": lm_train_card_vs_cpu(ops)}
+
+
+def profile_device(fn, reps: int = 3, match: str | None = None) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
     (``torch.profiler``), and the device's busy share of their span (CUDA
     events inside the profiled window, so profiler start-up is not
-    counted; host-side profiling overhead is)."""
+    counted; host-side profiling overhead is).  With ``match`` (a regular
+    expression), also the device ms of the kernels whose names match."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3605,10 +4092,14 @@ def profile_device(fn, reps: int = 3) -> dict:
          if str(e.device_type).endswith("CUDA")
          and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    return {"span_ms": span_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / span_ms,
-            "top": [{"kernel": k[:70], "ms": ms, "per_call": n}
-                    for k, ms, n in kernels[:8]]}
+    out = {"span_ms": span_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / span_ms,
+           "top": [{"kernel": k[:70], "ms": ms, "per_call": n}
+                   for k, ms, n in kernels[:8]]}
+    if match is not None:
+        out["matched_ms"] = sum(ms for k, ms, _ in kernels
+                                if re.search(match, k))
+    return out
 
 
 def replay_kernels(fn) -> dict[str, int]:
@@ -3862,6 +4353,17 @@ def main() -> int:
              lambda: cstep.train_step(x4096, t4096, lr=LR))):
         print(f"profile, {what} (profiler on): "
               + json.dumps(profile_device(fn)))
+    phase_s["timing and profiles"] = time.perf_counter() - t0
+
+    # -- the LM training path (step 18), after the chip paths' timings and
+    # profiles: its allocations and long profiles come last
+    t0 = time.perf_counter()
+    lm_train = lm_train_path(ops, xbk, fak)
+    print(f"LM training path [{card}]: " + json.dumps(
+        {part: {k: v for k, v in out.items() if k not in ("profile",
+                                                           "rows")}
+         for part, out in lm_train.items()}))
+    phase_s["LM training path"] = time.perf_counter() - t0
 
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
@@ -3918,7 +4420,16 @@ def main() -> int:
         "pulse_update": {"pipeline training": pipe_tr["pulse"]},
         "crossbar_train": {"pipeline training": pipe_tr["train"]},
     }
-    for name, paths in (*farm_counted.items(), *pipe_counted.items()):
+    # the LM training path's launches: the crossbar kernel mode at full
+    # width and the reduced kernel-mode step held against the CPU
+    lm_counted = {
+        name: {"crossbar kernel mode (full width)":
+               lm_train["crossbar"]["launches"][name],
+               "card vs CPU (reduced)":
+               lm_train["card vs cpu"]["launches"][name]}
+        for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")}
+    for name, paths in (*farm_counted.items(), *pipe_counted.items(),
+                        *lm_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -3927,6 +4438,10 @@ def main() -> int:
     for name, err in (*farm_tr["errs"].items(),
                       *pipe_farm["errs"].items()):
         errs[name] = max(errs[name], err)
+    # layer 0's launches of the crossbar-mode step are held relative to
+    # sum |x||w|: their absolute errors, from the same checks, are not kept
+    lm_rel_err = lm_train["crossbar"][
+        "layer-0 launches vs plain, max |err| / sum |x||w|"]
     replaces = {"crossbar_fwd": 84, "crossbar_bwd": 145, "crossbar_dw": 207,
                 "pulse_update": 403, "crossbar_train": 308}
     entries = []
@@ -3981,6 +4496,15 @@ def main() -> int:
         if name in farm_counted:
             entries[-1]["launches_faults_and_farm"] = farm_counted[name]
         entries[-1]["launches_pipeline"] = pipe_counted[name]
+        if name in lm_counted:
+            entries[-1]["launches_lm_train"] = lm_counted[name]
+            entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]
+            entries[-1]["lm_shapes"] = [
+                {k: r[k] for k in ("M", "K", "N", "ms", "ms_device",
+                                   "plain_ms", "library_ms",
+                                   "library_ms_device", "bound_ms",
+                                   "bound_by", "tile")}
+                for r in lm_train["crossbar"]["rows"] if r["kernel"] == name]
     dw_entry = next(e for e in entries if e["name"] == "crossbar_dw")
     dw_entry["fp32_mnist_step_ms_device"] = [
         r["ms_device"] for r in step_rows(train_rows, "crossbar_dw")]
@@ -4009,16 +4533,29 @@ def main() -> int:
         return next(r for r in fa_rows if r["case"].startswith(
             "qwen2-0.5b prefill") and r["dtype"] == dt
             and r["semantics"] == sem)
+    lm_flash = {
+        "flash_attention": {
+            "standard steps": lm_train["standard"][
+                "flash_attention launches"],
+            "crossbar kernel mode steps": lm_train["crossbar"][
+                "flash_attention launches"]},
+        "flash_attention_simt": {
+            "card vs CPU steps (reduced, float32)": lm_train[
+                "card vs cpu"]["flash_attention launches"]}}
     for name, dt, source, launches, what in (
             ("flash_attention", "bfloat16", "flash_attention_tc.cu",
              lm["prefill"]["flash_attention launches"],
              "launches: the bf16 prefill path, one prefill_fn call (24, "
-             "one per layer, all wgmma/chunked)"),
+             "one per layer, all wgmma/chunked), and the LM training "
+             "path (launches_lm_train: 24 a forward, 24 more recomputed "
+             "under remat, all wgmma/chunked)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
-             "one per layer, all simt/chunked)")):
+             "one per layer, all simt/chunked), and the reduced float32 "
+             "training steps held against the CPU (launches_lm_train)")):
         fa = fa_row(dt, "chunked")
+        launches += sum(lm_flash[name].values())
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -4032,6 +4569,10 @@ def main() -> int:
             "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
             "library_ms": fa["library_ms"],
             "pallas_ms": fa_row(dt, "pallas")["ms"],
+            "launches_lm_train": lm_flash[name],
+            "lm_train_backward_ms_per_layer": (
+                lm_train["standard"]["attention backward ms per layer"]
+                if dt == "bfloat16" else None),
             "timed": f"one launch at qwen2-0.5b's prefill shape (B=4, "
                      f"S=2048, H=14, K=2, hd=64, causal, {dt}) in "
                      f"chunked_attention's function (pallas_ms: the Pallas "
@@ -4041,7 +4582,6 @@ def main() -> int:
                      f"{'bf16 tensor-core' if dt == 'bfloat16' else 'fp32'}"
                      f" rate; library: scaled_dot_product_attention in "
                      f"{dt}"})
-    phase_s["timing and profiles"] = time.perf_counter() - t0
     print("phase seconds: " + json.dumps(
         {k: round(v, 2) for k, v in phase_s.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -113,7 +113,9 @@ def error_quantize(x: torch.Tensor, bits: int = ERROR_BITS,
         scale = torch.amax(torch.abs(x), dim=block_axis, keepdim=True) / maxmag
     scale = torch.where(scale == 0, torch.ones_like(scale),
                         scale).to(torch.float32)
-    mag = torch.abs(x) / scale
+    # a bf16 error is divided in fp32, as the reference promotes it (torch
+    # would keep a dimensioned bf16 operand's dtype against a 0-d scale)
+    mag = torch.abs(x).to(torch.promote_types(x.dtype, torch.float32)) / scale
     q = _round(mag, generator)
     q = torch.clamp(q, 0, maxmag) * torch.sign(x)
     dtype = torch.int8 if bits <= 8 else torch.int32

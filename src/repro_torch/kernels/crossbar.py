@@ -261,8 +261,11 @@ def crossbar_fwd_plain(xs: torch.Tensor, g_plus: torch.Tensor,
                        g_minus: torch.Tensor, *, activation: bool = True,
                        adc_bits: int | None = None,
                        adc_range: float = 0.5) -> torch.Tensor:
-    """Plain PyTorch version: xs (T, M, K); g± (T, K, N) -> (T, M, N)."""
-    o = torch.matmul(xs, g_plus - g_minus)
+    """Plain PyTorch version: xs (T, M, K); g± (T, K, N) -> (T, M, N),
+    on the operands' fp32 values (bf16 is upcast before the
+    subtraction)."""
+    f32 = torch.float32
+    o = torch.matmul(xs.to(f32), g_plus.to(f32) - g_minus.to(f32))
     if activation:
         o = torch.clamp(o * 0.25, -0.5, 0.5)
     if adc_bits is not None:
@@ -274,24 +277,28 @@ def crossbar_fwd_plain(xs: torch.Tensor, g_plus: torch.Tensor,
 
 def _dequant(dys: torch.Tensor, dy_scale: torch.Tensor | None
              ) -> torch.Tensor:
-    """Error codes -> values (``codes * scale``); fp32 values pass."""
+    """Error codes -> values (``codes * scale``); values pass as fp32."""
     if dy_scale is None:
-        return dys
+        return dys.to(torch.float32)
     return dys.to(torch.float32) * dy_scale
 
 
 def crossbar_bwd_plain(dys: torch.Tensor, g_plus: torch.Tensor,
                        g_minus: torch.Tensor, *,
                        dy_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: dys (T, M, N); g± (T, K, N) -> (T, M, K)."""
+    """Plain PyTorch version: dys (T, M, N); g± (T, K, N) -> (T, M, K),
+    on the operands' fp32 values."""
+    f32 = torch.float32
     return torch.matmul(_dequant(dys, dy_scale),
-                        (g_plus - g_minus).transpose(-1, -2))
+                        (g_plus.to(f32) - g_minus.to(f32)).transpose(-1, -2))
 
 
 def crossbar_dw_plain(xs: torch.Tensor, dys: torch.Tensor, *,
                       dy_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: xs (T, M, K); dys (T, M, N) -> (T, K, N)."""
-    return torch.matmul(xs.transpose(-1, -2), _dequant(dys, dy_scale))
+    """Plain PyTorch version: xs (T, M, K); dys (T, M, N) -> (T, K, N),
+    on the operands' fp32 values."""
+    return torch.matmul(xs.to(torch.float32).transpose(-1, -2),
+                        _dequant(dys, dy_scale))
 
 
 def _two_lr(lr: float | torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,15 @@ on CUDA tensors and raises on anything else.  ``flash_attention_plain``
 ``q_chunk``/``kv_chunk`` grid) are the CPU paths and the versions the
 kernels are held against on the card.
 
+The kernels compute the forward only.  ``flash_attention_vjp`` is the
+backward of either function in plain PyTorch: it recomputes the plain
+function under autograd and takes its vector-Jacobian product, as the
+reference's training step rematerializes ``chunked_attention``'s blocks
+(``jax.checkpoint``) and differentiates them with XLA's autodiff, outside
+any Pallas kernel.  ``kernels.ops.flash_attention`` pairs the kernel's
+forward with it in a ``torch.autograd.Function`` on CUDA tensors; a
+hand-written backward kernel is later work (ROADMAP Queue 2).
+
 The libraries are built and loaded inside the first launch, never at
 import.
 """
@@ -117,18 +126,21 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
     1e-30) cast to q's dtype; (B, Sq, H, hd).
 
     bf16 operands are multiplied as fp32 copies, which is exact (CPU
-    ``einsum`` on bf16 would round its result to bf16).  A ragged last
-    chunk is shorter (the reference asserts that the chunks divide S).
-    kv chunks past the diagonal are skipped when causal: there p = 0 and
-    corr = 1 exactly, so skipping leaves the result bit for bit as is."""
+    ``einsum`` on bf16 would round its result to bf16).  Each block casts
+    its own chunks, so under autograd each block's gradient of q, k and v
+    is rounded to their dtype and summed in it, as the reference's
+    transposed products and scans do.  A ragged last chunk is shorter
+    (the reference asserts that the chunks divide S).  kv chunks past the
+    diagonal are skipped when causal: there p = 0 and corr = 1 exactly,
+    so skipping leaves the result bit for bit as is."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     f32, dev = torch.float32, q.device
     cq, ck = min(q_chunk, Sq), min(kv_chunk, Skv)
-    qf = q.to(f32).reshape(B, Sq, K, H // K, hd)
+    qg = q.reshape(B, Sq, K, H // K, hd)
     outs = []
     for i0 in range(0, Sq, cq):
-        qb = qf[:, i0:i0 + cq]
+        qb = qg[:, i0:i0 + cq]
         n = qb.shape[1]
         m = torch.full((B, K, H // K, n), NEG_INF, dtype=f32, device=dev)
         l = torch.zeros((B, K, H // K, n), dtype=f32, device=dev)
@@ -137,7 +149,8 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
             if causal and j0 > i0 + n - 1:
                 break
             kb, vb = k[:, j0:j0 + ck], v[:, j0:j0 + ck]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.to(f32)) * scale
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb.to(f32),
+                             kb.to(f32)) * scale
             if causal:
                 qi = i0 + torch.arange(n, device=dev)[:, None]
                 ki = j0 + torch.arange(kb.shape[1], device=dev)[None, :]
@@ -152,6 +165,31 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
         outs.append(o / torch.clamp(l, min=1e-30)[..., None])
     out = torch.cat(outs, dim=3)                        # (B, K, G, Sq, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, scale: float,
+                        causal: bool = True, semantics: str = "chunked",
+                        q_chunk: int = 512, kv_chunk: int = 512
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the operands' dtypes: the vector-Jacobian product
+    with ``dout`` of the plain function of ``semantics``
+    (``chunked_attention_plain`` over the ``q_chunk`` x ``kv_chunk`` grid,
+    or ``flash_attention_plain``), recomputed under autograd on the
+    operands' device.  The reference differentiates its
+    ``chunked_attention`` the same way (rematerialized blocks, XLA
+    autodiff); this is the backward of ``ops.flash_attention``."""
+    check_semantics(semantics)
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        if semantics == "chunked":
+            out = chunked_attention_plain(qg, kg, vg, scale=scale,
+                                          causal=causal, q_chunk=q_chunk,
+                                          kv_chunk=kv_chunk)
+        else:
+            out = flash_attention_plain(qg, kg, vg, scale=scale,
+                                        causal=causal)
+        return torch.autograd.grad(out, (qg, kg, vg), dout)
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,7 +14,14 @@ path went through the kernel.
 ``crossbar_matmul`` is the differentiable product: a
 ``torch.autograd.Function`` whose forward is the fwd kernel and whose
 backward runs the bwd and dw kernels, on 8-bit error codes when
-``error_quant``.
+``error_quant``.  ``crossbar_fwd``, ``crossbar_bwd`` and ``crossbar_dw``
+take bf16 operands as well as fp32 ones and compute on their
+exact fp32 values, as the reference's Pallas kernels cast their operands
+inside the kernel: the wrapper upcasts them before the launch (a copy the
+kernels' producers could fold in later), and the plain versions upcast
+before the subtraction.  Their results are fp32; ``crossbar_matmul``
+returns y and dx in x's dtype and dw, -dw in the conductances' dtypes,
+as the reference's ``_crossbar_matmul`` casts them.
 
 ``crossbar_train_stacked`` is the fused per-stage training step (bwd +
 dw + pulse update, optionally the forward) on one launch: the compiled
@@ -25,8 +32,13 @@ kernel, ``kernels/kmeans.py``).
 
 ``flash_attention`` is fused attention: by default the reference's Pallas
 function; with ``semantics="chunked"`` its ``chunked_attention``, the LM
-prefill's (the flash kernels, ``kernels/flash_attention.py``: tensor
-cores for bf16, CUDA cores for fp32).
+prefill's and the LM training step's (the flash kernels,
+``kernels/flash_attention.py``: tensor cores for bf16, CUDA cores for
+fp32).  On CUDA tensors it is a ``torch.autograd.Function``: the kernel's
+forward, and a backward in plain PyTorch
+(``flash_attention.flash_attention_vjp``: the plain function recomputed
+under autograd), which is how the reference differentiates its
+``chunked_attention`` too (XLA autodiff, outside any Pallas kernel).
 
 Not ported yet (ROADMAP): the TPU block autotuner, the tuned-block table
 and the conductance pad cache (reference ``ops.py:60-255``), which tile for
@@ -60,6 +72,13 @@ def _dispatch(wrapper, name: str, *tensors, **kwargs):
 # One crossbar (2-D conductances)
 # ---------------------------------------------------------------------------
 
+def _exact_f32(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand as its exact fp32 values (the reference's kernels
+    cast inside); fp32 operands and integer codes pass as they are,
+    anything else reaches the kernel's own dtype check."""
+    return t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+
+
 def crossbar_fwd(x: torch.Tensor, g_plus: torch.Tensor,
                  g_minus: torch.Tensor, *, activation: bool = True,
                  adc_bits: int | None = None,
@@ -70,6 +89,7 @@ def crossbar_fwd(x: torch.Tensor, g_plus: torch.Tensor,
     quantization without a separate op between layers)."""
     lead = x.shape[:-1]
     K, N = g_plus.shape
+    x, g_plus, g_minus = map(_exact_f32, (x, g_plus, g_minus))
     y = _dispatch(crossbar_fwd, "crossbar_fwd", x.reshape(1, -1, K),
                   g_plus[None], g_minus[None], activation=activation,
                   adc_bits=adc_bits, adc_range=adc_range)
@@ -88,6 +108,7 @@ def crossbar_bwd(dy: torch.Tensor, g_plus: torch.Tensor,
     dequantized in-kernel as ``codes * scale``."""
     lead = dy.shape[:-1]
     K, N = g_plus.shape
+    dy, g_plus, g_minus = map(_exact_f32, (dy, g_plus, g_minus))
     dx = _dispatch(crossbar_bwd, "crossbar_bwd", dy.reshape(1, -1, N),
                    g_plus[None], g_minus[None], dy_scale=dy_scale)
     return dx.reshape(*lead, K)
@@ -101,6 +122,7 @@ def crossbar_dw(x: torch.Tensor, dy: torch.Tensor, *,
     """dw = x^T @ dequant(dy), summed over every leading axis.
     x (..., K); dy (..., N) -> (K, N)."""
     K, N = x.shape[-1], dy.shape[-1]
+    x, dy = _exact_f32(x), _exact_f32(dy)
     return _dispatch(crossbar_dw, "crossbar_dw", x.reshape(1, -1, K),
                      dy.reshape(1, -1, N), dy_scale=dy_scale)[0]
 
@@ -130,13 +152,17 @@ pulse_update.launches = 0
 # ---------------------------------------------------------------------------
 
 class _CrossbarMatmul(torch.autograd.Function):
-    """y = x @ (G+ - G-) on the kernels; backward on 8-bit error codes."""
+    """y = x @ (G+ - G-) on the kernels; backward on 8-bit error codes.
+    Operands in bf16 or fp32; every product is taken on their fp32
+    values, y and dx come back in x's dtype, dw and -dw in the
+    conductances' dtypes (the reference's casts)."""
 
     @staticmethod
     def forward(ctx, x, g_plus, g_minus, error_quant, err_bits):
         ctx.save_for_backward(x, g_plus, g_minus)
         ctx.error_quant, ctx.err_bits = error_quant, err_bits
-        return crossbar_fwd(x, g_plus, g_minus, activation=False)
+        return crossbar_fwd(x, g_plus, g_minus,
+                            activation=False).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -152,7 +178,8 @@ class _CrossbarMatmul(torch.autograd.Function):
             dw = crossbar_dw(x, dy)
         # d/dg_plus = +dw, d/dg_minus = -dw: the two columns move
         # oppositely (the +dw/2 / -dw/2 hardware update convention).
-        return dx, dw, -dw, None, None
+        return (dx.to(x.dtype), dw.to(g_plus.dtype), (-dw).to(g_minus.dtype),
+                None, None)
 
 
 def crossbar_matmul(x: torch.Tensor, g_plus: torch.Tensor,
@@ -344,6 +371,28 @@ kmeans_assign.launches = 0
 # Attention (the LM's prefill)
 # ---------------------------------------------------------------------------
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward (counted), the plain function's
+    vector-Jacobian product as its backward.  Under remat the forward runs
+    again when its period is recomputed, and counts again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, semantics, q_chunk, kv_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(scale=scale, causal=causal, semantics=semantics,
+                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal,
+                                         semantics=semantics)
+        flash_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*fak.flash_attention_vjp(q, k, v, dout, **ctx.kw),
+                None, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True,
                     semantics: str = "pallas", q_chunk: int = 512,
@@ -360,7 +409,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     their strides, the bf16 one copies a view only where its rows are not
     16-byte aligned.  Any Sq and Skv: the kernels mask the ragged edge,
     nothing is padded.  Each launch is counted on ``launches`` (and by the
-    kernel on ``flash_attention_kernel.routes``)."""
+    kernel on ``flash_attention_kernel.routes``).  Differentiable: on the
+    CPU through the plain version, on the card through
+    ``flash_attention_vjp``."""
     fak.check_semantics(semantics)
     fak.check_shapes(q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -369,10 +420,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q, k, v, scale=scale, causal=causal, q_chunk=q_chunk,
                 kv_chunk=kv_chunk)
         return fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
-    out = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal,
-                                     semantics=semantics)
-    flash_attention.launches += 1
-    return out
+    return _FlashAttention.apply(q, k, v, scale, causal, semantics, q_chunk,
+                                 kv_chunk)
 
 
 flash_attention.launches = 0

@@ -4,11 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --reduced --batch 4 --max-new 32 [--device cpu]
 
-Parameters are drawn from ``--seed`` on the run's device.  Runs on
-``--device cuda`` unless given ``--device cpu``; without a card the CUDA
-default raises.  On the card the time is measured with CUDA events around
-``generate``; on the CPU with the host clock.  ``--ckpt-dir`` is refused:
-checkpoints are not ported yet (ROADMAP Queue 1 item 10).
+Parameters are restored from the latest step of ``--ckpt-dir`` (a
+checkpoint of ``launch.train``, the port's or the reference's), or else
+drawn from ``--seed`` on the run's device.  Runs on ``--device cuda``
+unless given ``--device cpu``; without a card the CUDA default raises.  On
+the card the time is measured with CUDA events around ``generate``; on
+the CPU with the host clock.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.models import build_model
-from repro_torch.runtime import BatchedServer
+from repro_torch.runtime import BatchedServer, checkpoint as ckpt
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -34,9 +35,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir: checkpoints are not ported yet "
-                         "(ROADMAP Queue 1 item 10)")
 
     device = resolve_device(args.device)
     # float32 compute means full fp32 products, as the reference's: no TF32
@@ -45,7 +43,14 @@ def main(argv: list[str] | None = None) -> None:
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     model = build_model(cfg, device)
-    params = model.init(torch.Generator(device).manual_seed(args.seed))
+    if args.ckpt_dir:
+        restored, step, _ = ckpt.restore(
+            args.ckpt_dir, {"params": model.abstract_params(), "opt": None},
+            device=device)
+        params = restored["params"]
+        print(f"restored params from step {step}")
+    else:
+        params = model.init(torch.Generator(device).manual_seed(args.seed))
 
     server = BatchedServer(model, params, batch=args.batch,
                            max_len=args.max_len)

@@ -4,9 +4,19 @@
 The layer stack is grouped into *periods* (one cycle of
 ``cfg.block_pattern``), stacked on a leading axis as in the reference.
 Where the reference runs them under ``jax.lax.scan``, the port runs a
-Python loop over views of the stacked parameters (no copies) and casts
-each period's parameters to the compute dtype as the reference's scan
-body does.  Decode caches are stacked the same way and updated in place.
+Python loop over views of the stacked parameters (no copies; one
+``unbind`` per stacked leaf, whose backward stacks the periods' gradients
+in one pass) and casts each period's parameters to the compute dtype as
+the reference's scan body does.  Decode caches are stacked the same way
+and updated in place.
+
+Under autograd a period's body is rematerialized as the reference's
+``_remat_wrap`` asks (``cfg.remat``): ``"full"`` recomputes the whole
+period in the backward (``torch.utils.checkpoint``, non-reentrant),
+``"dots"`` saves the outputs of the products without batch dimensions
+(the projections' ``mm``/``addmm``: JAX's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+``"none"`` saves everything.  Remat changes no value.
 
 Only the ``attn`` kind (pre-norm self-attention + MLP, the dense
 architectures) is ported; ``local``, ``moe``, ``rec`` and ``ssd`` blocks
@@ -15,12 +25,15 @@ and VLM patches raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import cast_for_compute, stack_specs, tree_map
+from repro_torch.dist.sharding import (cast_for_compute, stack_specs,
+                                      tree_leaves, tree_map)
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers.attention import NOT_PORTED
 from repro_torch.layers import embedding as emb_mod
@@ -150,12 +163,47 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Forward
 # ---------------------------------------------------------------------------
 
+# the products without batch dimensions: what "dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` rematerialized as ``cfg.remat`` asks (the reference's
+    ``_remat_wrap``); only under autograd, where it saves memory."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
                  compute_dtype: torch.dtype) -> torch.Tensor:
     if cfg.vlm_patches:
         raise NotImplementedError(f"VLM patches are {NOT_PORTED}")
     return emb_mod.embed_apply(params["embed"], batch["tokens"],
                                compute_dtype)
+
+
+def _unstack(tree: Any) -> list[Any]:
+    """A tree of stacked leaves -> one tree of views per period, from one
+    ``unbind`` per leaf."""
+    views = [a.unbind(0) for a in tree_leaves(tree)]
+    out = []
+    for p in range(len(views[0])):
+        it = iter(v[p] for v in views)
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
 
 
 def lm_forward(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
@@ -174,16 +222,22 @@ def lm_forward(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     for i, kind in enumerate(lay.prefix):
         x = run(kind, params["prefix"][i], x,
                 caches["prefix"][i] if caches else None)
-    for p in range(lay.periods):
-        # views of period p (no copies), cast as the reference's scan body
-        p_params = cast_for_compute(
-            tree_map(lambda a: a[p], params["stack"]), compute_dtype)
-        p_cache = (tree_map(lambda a: a[p], caches["stack"])
-                   if caches is not None else None)
+
+    def period(x, p_params, p_cache):
+        # cast as the reference's scan body, inside what remat recomputes
+        p_params = cast_for_compute(p_params, compute_dtype)
         for i, kind in enumerate(lay.pattern):
             key = f"b{i}_{kind}"
             x = run(kind, p_params[key], x,
                     p_cache[key] if p_cache is not None else None)
+        return x
+
+    body = _remat_wrap(cfg, period)
+    stack = _unstack(params["stack"]) if lay.periods else []
+    for p, p_params in enumerate(stack):
+        p_cache = (tree_map(lambda a: a[p], caches["stack"])
+                   if caches is not None else None)
+        x = body(x, p_params, p_cache)
     for i, kind in enumerate(lay.suffix):
         x = run(kind, params["suffix"][i], x,
                 caches["suffix"][i] if caches else None)

@@ -6,15 +6,19 @@
   spec           ParamSpec tree (drives init and param_count)
   init(gen)      concrete parameters, drawn from a ``torch.Generator`` on
                  the model's device
+  abstract_params()  the same tree as ``meta`` tensors (nothing allocated)
+  loss_fn        (params, batch) -> (loss, metrics), under autograd (the
+                 training step differentiates it)
   prefill_fn     (params, batch) -> logits
   decode_fn      (params, cache, batch) -> (logits, cache); the cache is
                  updated in place (the reference donates it)
   init_cache     (batch, max_len[, dtype]) -> cache tree on the device
   input_specs    (kind, seq_len, global_batch) -> (shape, dtype) tuples
 
-The device is ``cuda`` unless the caller passes ``device="cpu"``; a CUDA
-device without a card raises.  The LM training path (``loss_fn``) and the
-encoder-decoder family are not ported (ROADMAP Queue 1 item 10).
+``prefill_fn`` and ``decode_fn`` run without autograd.  The device is
+``cuda`` unless the caller passes ``device="cpu"``; a CUDA device without
+a card raises.  The encoder-decoder family is not ported (ROADMAP Queue 1
+item 10).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.layers.embedding import cross_entropy
 from repro_torch.models import lm as lm_mod
 
 
@@ -34,6 +39,7 @@ class Model:
     cfg: ModelConfig
     spec: Any
     device: torch.device
+    loss_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
     init_cache: Callable
@@ -46,6 +52,12 @@ class Model:
             raise ValueError(f"the generator lies on {generator.device}, "
                              f"the model on {self.device}")
         return shd.init_params(generator, self.spec)
+
+    def abstract_params(self) -> dict:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes,
+        nothing allocated (what a checkpoint restores into)."""
+        return shd.tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                  device="meta"), self.spec)
 
 
 def _positions_for(cfg: ModelConfig, B: int, L: int, *,
@@ -64,13 +76,23 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
     spec = lm_mod.lm_spec(cfg)
     compute_dtype = getattr(torch, cfg.compute_dtype)
 
-    @torch.no_grad()
-    def prefill_fn(params, batch):
+    def forward_logits(params, batch):
         B, L = batch["tokens"].shape
         x = lm_mod.embed_inputs(cfg, params, batch, compute_dtype)
         positions = _positions_for(cfg, B, L, device=x.device)
         h, _ = lm_mod.lm_forward(cfg, params, x, positions=positions)
         return lm_mod.lm_logits(cfg, params, h)
+
+    def loss_fn(params, batch):
+        logits = forward_logits(params, batch)
+        loss = cross_entropy(logits, batch["labels"])
+        # the dense family's auxiliary loss is 0 (MoE's is not ported)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss + aux, {"ce": loss, "aux": aux}
+
+    @torch.no_grad()
+    def prefill_fn(params, batch):
+        return forward_logits(params, batch)
 
     @torch.no_grad()
     def decode_fn(params, cache, batch):
@@ -105,8 +127,8 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
                                         device="meta"))
         return batch, cache
 
-    return Model(cfg, spec, device, prefill_fn, decode_fn, init_cache,
-                 input_specs)
+    return Model(cfg, spec, device, loss_fn, prefill_fn, decode_fn,
+                 init_cache, input_specs)
 
 
 def build_model(cfg: ModelConfig,

@@ -1,5 +1,10 @@
-"""Device-level fault model of the memristor crossbars (port of
-``repro.runtime.faults.MemristorFaults``).
+"""Fault-tolerance primitives: preemption, stragglers, device faults (port
+of ``repro/runtime/faults.py``).
+
+`SimulatedPreemption`, `FaultInjector` and `StragglerWatchdog` are the
+train loop's hooks (the tests exercise a kill and a bit-for-bit resume);
+`StepTimer` times a step on the host clock, waiting for the CUDA device
+first where the step ran there (the card runs asynchronously).
 
 `MemristorFaults` models stuck-on/stuck-off memristor fractions and
 per-core conductance variation as deterministic seeded masks.  The virtual
@@ -10,13 +15,12 @@ arrays to measure accuracy against fault rate;
 The reference draws its masks with ``jax.random``; the port draws them
 from a ``torch.Generator`` on the CPU, so the two streams differ and the
 parity tests hand the reference's masks to the port (a subclass overriding
-`MemristorFaults.masks` and `MemristorFaults.core_scales`).  The
-preemption, straggler and step-timer hooks of the reference module wait
-for the LM-training slice.
+`MemristorFaults.masks` and `MemristorFaults.core_scales`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -28,6 +32,63 @@ def _generator(seed: int, salt: int) -> torch.Generator:
     """A CPU generator seeded with ``(seed * 0x9E3779B97F4A7C15 + salt)
     mod 2^64``: one stream per (seed, salt)."""
     return torch.Generator().manual_seed((seed * _MIX + salt) % 2 ** 64)
+
+
+class SimulatedPreemption(Exception):
+    """Raised by the train loop when a fault injector fires."""
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Deterministically preempt at a given step (tests/examples)."""
+    preempt_at_step: int | None = None
+
+    def check(self, step: int) -> None:
+        if self.preempt_at_step is not None and step == self.preempt_at_step:
+            raise SimulatedPreemption(f"simulated preemption at step {step}")
+
+
+@dataclasses.dataclass
+class StragglerWatchdog:
+    """Flags steps slower than ``threshold`` x the running median of the
+    last ``window`` steps (once 8 are seen), recording (step, dt, median)
+    in ``events``."""
+    threshold: float = 3.0
+    window: int = 32
+    _times: list[float] = dataclasses.field(default_factory=list)
+    events: list[tuple[int, float, float]] = dataclasses.field(
+        default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        self._times.append(dt)
+        self._times = self._times[-self.window:]
+        med = sorted(self._times)[len(self._times) // 2]
+        if len(self._times) >= 8 and dt > self.threshold * med:
+            self.events.append((step, dt, med))
+            return True
+        return False
+
+
+class StepTimer:
+    """``with StepTimer(device) as t: ...`` leaves the seconds in ``t.dt``.
+    On a CUDA device it synchronizes before each clock read, so ``dt``
+    covers the device's work and not only its enqueueing."""
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+
+    def _clock(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def __enter__(self):
+        self.t0 = self._clock()
+        return self
+
+    def __exit__(self, *exc):
+        self.dt = self._clock() - self.t0
+        return False
 
 
 @dataclasses.dataclass(frozen=True)

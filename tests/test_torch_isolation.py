@@ -55,13 +55,18 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.sim.chip" in mods and lm <= set(mods), mods
     assert {"repro_torch.sim.fabric",
             "repro_torch.launch.pipeline"} <= set(mods), mods
-    assert len(mods) >= 51, mods
+    assert {"repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+            "repro_torch.runtime.train_loop",
+            "repro_torch.runtime.checkpoint",
+            "repro_torch.launch.train"} <= set(mods), mods
+    assert len(mods) >= 58, mods
 
 
 def test_sources_have_no_jax_or_repro_imports():
     examples = sorted((REPO / "examples").glob("torch_*.py"))
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
-    assert len(files) >= 56 and len(examples) >= 4
+    assert len(files) >= 64 and len(examples) >= 6
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -76,8 +81,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.paper_apps import PAPER_SPEC
     from repro_torch.core.crossbar import mlp_forward
-    from repro_torch.launch import chipsim, farm, pipeline, serve
+    from repro_torch.launch import chipsim, farm, pipeline, serve, train
     from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import Trainer, checkpoint
     from repro_torch.sim import (ChipFarm, ChipPipeline, PipelineFarm,
                                  VirtualChip, build_farm, build_pipeline)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -94,7 +101,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                lambda: PipelineFarm(layers),
                lambda: pipeline.main(["--app", "isolet_class"]),
                lambda: build_model(get_reduced_config("qwen2-0.5b")),
-               lambda: serve.main(["--arch", "qwen2-0.5b", "--reduced"])):
+               lambda: serve.main(["--arch", "qwen2-0.5b", "--reduced"]),
+               lambda: Trainer(get_reduced_config("qwen2-0.5b"),
+                               adamw(1e-3)),
+               lambda: train.main(["--arch", "qwen2-0.5b", "--reduced"]),
+               lambda: checkpoint.restore("x", {})):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn()
 

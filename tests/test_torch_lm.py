@@ -332,8 +332,10 @@ def test_serve_cli_on_cpu():
     assert "16 tokens in" in lines[-1] and "(11 decode steps)" in lines[-1]
 
 
-def test_serve_cli_refuses_checkpoints():
+def test_serve_cli_refuses_checkpoints(tmp_path):
+    # checkpoints are ported: the CLI serves what a checkpoint restores
+    # (tests/test_torch_train_loop.py) and refuses a directory without one
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--ckpt-dir", "x"])
+                    "--ckpt-dir", str(tmp_path)])
