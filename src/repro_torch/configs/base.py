@@ -4,10 +4,11 @@
 ``ModelConfig`` keeps every field of the reference's, so a config module
 copies over unchanged and compares field for field.  The registry lists
 only the architectures the port can build: the four dense (``attn``-only)
-configs.  The MoE, SSM, hybrid, encoder-decoder and VLM configs wait for
-their layers (ROADMAP Queue 1 item 10), and so do ``moe()``, ``ssd()`` and
-``rglru()``.  ``reduced()`` of each config module yields the CPU test
-variant (same topology, tiny widths).
+configs and the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
+``local`` windowed attention).  The MoE, SSM, encoder-decoder and VLM
+configs wait for their layers (ROADMAP Queue 1 item 10), and so do
+``moe()`` and ``ssd()``.  ``reduced()`` of each config module yields the
+CPU test variant (same topology, tiny widths).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import importlib
 from typing import Any
 
 from repro_torch.layers.attention import AttnConfig
+from repro_torch.layers.rglru import RGLRUConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +116,10 @@ class ModelConfig:
             q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
             skip_masked_blocks=self.skip_masked_blocks)
 
+    def rglru(self) -> RGLRUConfig:
+        return RGLRUConfig(d_model=self.d_model,
+                           d_rnn=self.d_rnn or self.d_model)
+
     def layer_kinds(self) -> list[str]:
         """Per-layer block kinds: optional dense prefix, then the pattern
         cycled."""
@@ -142,6 +148,7 @@ ARCH_MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_05b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 

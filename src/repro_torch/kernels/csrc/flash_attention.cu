@@ -20,7 +20,10 @@
 //   before p . v is a no-op in fp32, so the two functions differ only by
 //   where the scale's rounding falls.
 // Then, in both: when causal, s = -1e30 where key index > query index,
-// both counted from 0 (right for prefill, where Sq == Skv); running max m,
+// both counted from 0 (right for prefill, where Sq == Skv); with a window
+// w (CHUNKED only, the wrapper's rule), also where key index <= query
+// index - w (RecurrentGemma's local layers, the reference's _block_mask);
+// running max m,
 // sum l and accumulator acc in fp32, p = exp(s - m), acc += p . v in fp32;
 // out = acc / max(l, 1e-30).  expf and IEEE division; built without
 // --use_fast_math.
@@ -28,7 +31,13 @@
 // Schedule: one block of 256 threads per (query tile of BQ = 64, head h,
 // batch b).  The block stages its query tile in shared memory once,
 // then walks key tiles of BK = 64 in ascending order, stopping at the
-// diagonal when causal.  Per key tile it stages k and v, computes the
+// diagonal when causal and, with a window, starting at the tile that holds
+// its first query's first visible key, q0 - w + 1.  That is exact: every
+// query sees its own key, and a tile a row meets before its first visible
+// key (all -1e30: m stays -1e30, p = 1) is wiped by corr = exp(-1e30 - m)
+// = 0 when that key arrives, as the reference's banded schedule; a window
+// of Sq or more masks nothing and starts at tile 0, the causal kernel bit
+// for bit.  Per key tile it stages k and v, computes the
 // 64 x 64 scores (each thread a 4 x 4 micro-tile: rows ty + 16a, keys
 // tx + 16b, one ascending-d fmaf chain each), masks them, updates the
 // running max and sum of its four rows (shuffles across the 16 threads that
@@ -37,11 +46,12 @@
 // Ragged Sq and Skv are masked, not padded: keys past Skv score -1e30 like
 // masked ones (so p = 0 exactly) and their v rows are zero; queries past Sq
 // are computed and not stored.  No split over keys and no atomics, so the
-// result does not depend on the launch.  hd <= 128 (the wrapper raises
+// result does not depend on the launch.  hd <= 256 (the wrapper raises
 // above); the accumulator width is a template parameter (hd/16 rounded up
-// to 1, 2, 4 or 8).  Shared memory: (BQ + BK) (hd | 1) + BK 16 ceil(hd/16)
-// + BQ (BK + 16) floats = 69.6 KB at hd = 64, 118 KB at hd = 128, so the
-// launch opts in to dynamic shared memory above 48 KB.  Odd row strides keep
+// to 1, 2, 4, 8 or 16: at hd 256, 4 x 16 fp32 accumulators a thread).
+// Shared memory: (BQ + BK) (hd | 1) + BK 16 ceil(hd/16) + BQ (BK + 16)
+// floats = 69.6 KB at hd = 64, 118 KB at hd = 128, 218 KB at hd = 256, so
+// the launch opts in to dynamic shared memory above 48 KB.  Odd row strides keep
 // the 16 key rows a warp reads in one step in 16 banks; p's row stride of
 // BK + 16 puts a warp's two rows in opposite bank halves.
 //
@@ -80,7 +90,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H,
           int group, int Sq, int Skv, int hd, float scale, int causal,
-          Strides st) {
+          int window, Strides st) {
   extern __shared__ __align__(16) float smem[];
   const int rs = hd | 1;                 // odd row stride of q and k tiles
   constexpr int VS = 16 * DC;            // row stride of the v tile
@@ -112,12 +122,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
   }
 
-  // keys this tile of queries can see: up to the last query's index
+  // keys this tile of queries can see: up to the last query's index, and
+  // with a window from the first query's first visible key
   int kend = Skv;
   if (causal) kend = min(Skv, min(q0 + BQ, Sq));
+  const int t0 = window ? max(0, q0 - window + 1) / BK : 0;
   const int tiles = (kend + BK - 1) / BK;
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = t0; t < tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();   // the previous tile's k, v and p are consumed
     for (int e = tid; e < BK * hd; e += THREADS) {
@@ -157,7 +169,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < TC; ++c) {
         const int kj = k0 + tx + 16 * c;
         if (CHUNKED) s[a][c] = __fmul_rn(s[a][c], scale);
-        if (kj >= Skv || (causal && kj > qi)) s[a][c] = NEG_INF;
+        if (kj >= Skv || (causal && kj > qi)
+            || (window && kj <= qi - window))
+          s[a][c] = NEG_INF;
         mx = fmaxf(mx, s[a][c]);
       }
 #pragma unroll
@@ -212,7 +226,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 template <int DC, bool CHUNKED>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int K, int Sq, int Skv, int hd, float scale, int causal,
-           const Strides& st, cudaStream_t stream) {
+           int window, const Strides& st, cudaStream_t stream) {
   const int rs = hd | 1;
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(BQ + BK) * rs + BK * 16 * DC + BQ * PSTRIDE);
@@ -227,41 +241,46 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_fwd<DC, CHUNKED><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, H / K, Sq,
-      Skv, hd,
-      scale, causal, st);
+      Skv, hd, scale, causal, window, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool CHUNKED>
 int launch_dc(const void* q, const void* k, const void* v, void* out, int B,
               int H, int K, int Sq, int Skv, int hd, float scale, int causal,
-              const Strides& st, cudaStream_t stream) {
+              int window, const Strides& st, cudaStream_t stream) {
   if (hd <= 16)
     return launch<1, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
-                              causal, st, stream);
+                              causal, window, st, stream);
   if (hd <= 32)
     return launch<2, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
-                              causal, st, stream);
+                              causal, window, st, stream);
   if (hd <= 64)
     return launch<4, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
-                              causal, st, stream);
-  return launch<8, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
-                            causal, st, stream);
+                              causal, window, st, stream);
+  if (hd <= 128)
+    return launch<8, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
+                              causal, window, st, stream);
+  return launch<16, CHUNKED>(q, k, v, out, B, H, K, Sq, Skv, hd, scale,
+                             causal, window, st, stream);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream).  q, k, v and out are
 // fp32; chunked selects chunked_attention's function (1) or the Pallas
-// kernel's (0); strides: 12 element strides, q's (b, s, h, d) then k's
+// kernel's (0); window: 0 for none, else w >= 1 (chunked only, Sq <= Skv);
+// strides: 12 element strides, q's (b, s, h, d) then k's
 // and v's.  Returns the first CUDA error of the shared-memory opt-in or
-// the launch: 0 on success.  The caller checks devices, types and shapes
-// and keeps 1 <= hd <= 128, H % K == 0, B and H <= 65535.
+// the launch: 0 on success, cudaErrorInvalidValue for an hd or window it
+// does not take.  The caller checks devices, types and shapes and keeps
+// H % K == 0, B and H <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       int B, int H, int K, int Sq, int Skv,
                                       int hd, float scale, int causal,
-                                      int chunked, const long long* strides,
+                                      int chunked, int window,
+                                      const long long* strides,
                                       void* stream) {
   Strides st;
   for (int i = 0; i < 4; ++i) {
@@ -269,10 +288,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     st.k[i] = strides[4 + i];
     st.v[i] = strides[8 + i];
   }
+  if (hd < 1 || hd > 256 || window < 0
+      || (window && (!chunked || Sq > Skv)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunked)
     return launch_dc<true>(q, k, v, out, B, H, K, Sq, Skv, hd, scale, causal,
-                           st, s);
+                           window, st, s);
   return launch_dc<false>(q, k, v, out, B, H, K, Sq, Skv, hd, scale, causal,
-                          st, s);
+                          0, st, s);
 }

@@ -6,7 +6,11 @@ with an online softmax, output in q's dtype.  The layout is the reference
 wrapper's public one: q (B, Sq, H, hd), k and v (B, Skv, K, hd) with
 H % K == 0; query head h reads kv head h // (H // K) (the order of
 ``jnp.repeat``).  The causal mask counts query and key positions from 0 on
-both sides (right for prefill, where Sq == Skv).  hd is at most 128.
+both sides (right for prefill, where Sq == Skv).  hd is at most 256.
+The chunked function also takes a sliding ``window`` (RecurrentGemma's
+local layers): key j is visible to query i only where i - window < j, the
+reference's ``_block_mask``.  The Pallas function has no window, so
+neither has the port's.
 
 The reference has two functions of this shape, and ``semantics`` selects
 one (``SEMANTICS``):
@@ -23,9 +27,10 @@ Two CUDA sources (sm_90a) compute them:
 
 * ``csrc/flash_attention_tc.cu`` for bf16 operands, on the tensor cores
   (``wgmma``), hd in ``TC_HEAD_DIMS``; both functions (a template
-  parameter);
+  parameter), the chunked one with or without a window;
 * ``csrc/flash_attention.cu`` for fp32 operands, on the CUDA cores (TF32
-  stays off), any hd up to 128; both functions.
+  stays off), any hd up to 256; both functions, the chunked one with or
+  without a window.
 
 ``flash_attention_kernel`` launches the one that fits the operands' dtype
 on CUDA tensors and raises on anything else.  ``flash_attention_plain``
@@ -53,8 +58,8 @@ import functools
 
 import torch
 
-MAX_HD = 128       # head width the kernels' accumulators hold
-TC_HEAD_DIMS = (16, 32, 64, 128)   # head widths of the tensor-core kernel
+MAX_HD = 256       # head width the kernels' accumulators hold
+TC_HEAD_DIMS = (16, 32, 64, 128, 256)   # head widths of the tensor-core kernel
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 SEMANTICS = ("pallas", "chunked")
@@ -63,7 +68,7 @@ ROUTES = ("wgmma", "simt")
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless q is (B, Sq, H, hd) and k, v (B, Skv, K, hd) with
-    H % K == 0, nonempty, and 1 <= hd <= 128."""
+    H % K == 0, nonempty, and 1 <= hd <= 256."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, Sq, H, hd) and k, v (B, Skv, K, "
                          f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -86,6 +91,25 @@ def check_semantics(semantics: str) -> None:
     if semantics not in SEMANTICS:
         raise ValueError(f"semantics must be one of {SEMANTICS}, got "
                          f"{semantics!r}")
+
+
+def check_window(window: int | None, semantics: str, Sq: int,
+                 Skv: int) -> None:
+    """Raise unless ``window`` is None or a positive int given with the
+    chunked function and Sq <= Skv.  Then every query sees a key (itself
+    when causal), so a block wholly outside the band contributes exactly
+    0 and the kernels and the plain version may skip it."""
+    if window is None:
+        return
+    if semantics != "chunked":
+        raise ValueError(f"a window needs semantics='chunked' (the Pallas "
+                         f"function has none), got {semantics!r}")
+    if isinstance(window, bool) or not isinstance(window, int) \
+            or window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
+    if Sq > Skv:
+        raise ValueError(f"a window needs Sq <= Skv, got Sq={Sq}, "
+                         f"Skv={Skv}")
 
 
 def route(dtype: torch.dtype) -> str:
@@ -117,7 +141,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, scale: float,
                             causal: bool = True, q_chunk: int = 512,
-                            kv_chunk: int = 512) -> torch.Tensor:
+                            kv_chunk: int = 512,
+                            window: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the reference's ``chunked_attention``
     (``_online_update`` step for step): per (q chunk, kv chunk) in
     ascending order, s = (q . k in fp32 from the operand values) * scale,
@@ -132,7 +157,12 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
     transposed products and scans do.  A ragged last chunk is shorter
     (the reference asserts that the chunks divide S).  kv chunks past the
     diagonal are skipped when causal: there p = 0 and corr = 1 exactly,
-    so skipping leaves the result bit for bit as is."""
+    so skipping leaves the result bit for bit as is.  With a ``window``
+    (``check_window``), key j is masked for query i unless i - window <
+    j, and kv chunks wholly before a q chunk's band are skipped too: a
+    chunk that only precedes the first visible key leaves l and o
+    multiplied by corr = exp(-1e30 - m) = 0 when that key arrives, which
+    is the reference's banded schedule (``skip_masked_blocks``)."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     f32, dev = torch.float32, q.device
@@ -148,13 +178,18 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
         for j0 in range(0, Skv, ck):
             if causal and j0 > i0 + n - 1:
                 break
+            if window is not None and j0 + ck <= i0 - window + 1:
+                continue          # below the band of every query here
             kb, vb = k[:, j0:j0 + ck], v[:, j0:j0 + ck]
             s = torch.einsum("bqkgd,bskd->bkgqs", qb.to(f32),
                              kb.to(f32)) * scale
-            if causal:
+            if causal or window is not None:
                 qi = i0 + torch.arange(n, device=dev)[:, None]
                 ki = j0 + torch.arange(kb.shape[1], device=dev)[None, :]
-                s = s.masked_fill(ki > qi, NEG_INF)
+                masked = (ki > qi) & causal
+                if window is not None:
+                    masked = masked | (ki <= qi - window)
+                s = s.masked_fill(masked, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -170,7 +205,8 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, scale: float,
                         causal: bool = True, semantics: str = "chunked",
-                        q_chunk: int = 512, kv_chunk: int = 512
+                        q_chunk: int = 512, kv_chunk: int = 512,
+                        window: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the operands' dtypes: the vector-Jacobian product
     with ``dout`` of the plain function of ``semantics``
@@ -180,12 +216,13 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunked_attention`` the same way (rematerialized blocks, XLA
     autodiff); this is the backward of ``ops.flash_attention``."""
     check_semantics(semantics)
+    check_window(window, semantics, q.shape[1], k.shape[1])
     with torch.enable_grad():
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
         if semantics == "chunked":
             out = chunked_attention_plain(qg, kg, vg, scale=scale,
                                           causal=causal, q_chunk=q_chunk,
-                                          kv_chunk=kv_chunk)
+                                          kv_chunk=kv_chunk, window=window)
         else:
             out = flash_attention_plain(qg, kg, vg, scale=scale,
                                         causal=causal)
@@ -199,7 +236,7 @@ def _launch_fn(name: str):
     fn = getattr(_build.load(name).cdll, f"{name}_launch")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                   ctypes.c_float, i32, i32,
+                   ctypes.c_float, i32, i32, i32,
                    ctypes.POINTER(ctypes.c_longlong), ptr]
     fn.restype = ctypes.c_int
     return fn
@@ -216,7 +253,8 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, scale: float,
                            causal: bool = True,
-                           semantics: str = "pallas") -> torch.Tensor:
+                           semantics: str = "pallas",
+                           window: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel of ``semantics``: q (B, Sq, H, hd); k, v (B,
     Skv, K, hd), all fp32 or all bf16, on one CUDA device -> (B, Sq, H,
     hd) contiguous in q's dtype, on the current stream; raises if the
@@ -230,7 +268,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     here, and each such copy is counted on
     ``flash_attention_kernel.operand_copies``.  Each launch is counted on
     ``flash_attention_kernel.routes["<route>/<semantics>"]`` (``route``:
-    the source it went to)."""
+    the source it went to).  ``window`` (the chunked function only, Sq <=
+    Skv: ``check_window``) bands the keys; a window of Skv or more gives
+    the causal kernel's output bit for bit.  A launch with a window also
+    counts on ``flash_attention_kernel.windowed``."""
     check_semantics(semantics)
     for t in (q, k, v):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
@@ -239,6 +280,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     check_shapes(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    check_window(window, semantics, Sq, Skv)
     tc = route(q.dtype) == "wgmma"
     if tc and hd not in TC_HEAD_DIMS:
         raise ValueError(f"the tensor-core flash kernel takes head widths "
@@ -265,13 +307,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, K, Sq, Skv, hd, scale, int(causal),
-                int(semantics == "chunked"), strides, stream)
+                int(semantics == "chunked"),
+                0 if window is None else min(window, Skv), strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention_kernel.routes[f"{route(q.dtype)}/{semantics}"] += 1
+    flash_attention_kernel.windowed += window is not None
     return out
 
 
 flash_attention_kernel.operand_copies = 0
+flash_attention_kernel.windowed = 0
 flash_attention_kernel.routes = {f"{r}/{s}": 0 for r in ROUTES
                                  for s in SEMANTICS}

@@ -377,12 +377,13 @@ class _FlashAttention(torch.autograd.Function):
     again when its period is recomputed, and counts again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, semantics, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, scale, causal, semantics, q_chunk, kv_chunk,
+                window=None):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(scale=scale, causal=causal, semantics=semantics,
-                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+                      q_chunk=q_chunk, kv_chunk=kv_chunk, window=window)
         out = fak.flash_attention_kernel(q, k, v, scale=scale, causal=causal,
-                                         semantics=semantics)
+                                         semantics=semantics, window=window)
         flash_attention.launches += 1
         return out
 
@@ -390,13 +391,14 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         return (*fak.flash_attention_vjp(q, k, v, dout, **ctx.kw),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True,
                     semantics: str = "pallas", q_chunk: int = 512,
-                    kv_chunk: int = 512) -> torch.Tensor:
+                    kv_chunk: int = 512,
+                    window: int | None = None) -> torch.Tensor:
     """Fused attention.  q (B, Sq, H, hd); k, v (B, Skv, K, hd), H % K == 0
     -> (B, Sq, H, hd) in q's dtype.  ``semantics`` selects which of the
     reference's two functions is computed: ``"pallas"`` (its Pallas
@@ -409,19 +411,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     their strides, the bf16 one copies a view only where its rows are not
     16-byte aligned.  Any Sq and Skv: the kernels mask the ragged edge,
     nothing is padded.  Each launch is counted on ``launches`` (and by the
-    kernel on ``flash_attention_kernel.routes``).  Differentiable: on the
-    CPU through the plain version, on the card through
-    ``flash_attention_vjp``."""
+    kernel on ``flash_attention_kernel.routes``).  ``window`` (the
+    chunked function only, Sq <= Skv) masks key j for query i unless i -
+    window < j; both kernels skip the key tiles wholly outside the band.
+    Differentiable: on the CPU through the plain version, on the card
+    through ``flash_attention_vjp``."""
     fak.check_semantics(semantics)
     fak.check_shapes(q, k, v)
+    fak.check_window(window, semantics, q.shape[1], k.shape[1])
     if all(t.device.type == "cpu" for t in (q, k, v)):
         if semantics == "chunked":
             return fak.chunked_attention_plain(
                 q, k, v, scale=scale, causal=causal, q_chunk=q_chunk,
-                kv_chunk=kv_chunk)
+                kv_chunk=kv_chunk, window=window)
         return fak.flash_attention_plain(q, k, v, scale=scale, causal=causal)
     return _FlashAttention.apply(q, k, v, scale, causal, semantics, q_chunk,
-                                 kv_chunk)
+                                 kv_chunk, window)
 
 
 flash_attention.launches = 0

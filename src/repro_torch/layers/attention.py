@@ -1,9 +1,10 @@
 """Attention: chunked (flash-style) prefill, cached decode (port of the
-self-attention part of ``repro/layers/attention.py``).
+self-attention part of ``repro/layers/attention.py``), with sliding
+windows (RecurrentGemma's ``local`` layers).
 
 Prefill (``cache is None``) is causal self-attention over the whole
-sequence through ``chunked_attention``, the reference's own prefill
-function: q . k from the operand values with fp32 accumulation, the scale
+sequence, banded to the last ``window`` keys where the config has one,
+through ``chunked_attention``, the reference's own prefill function: q . k from the operand values with fp32 accumulation, the scale
 after the product, p rounded to v's dtype before p . v.  It goes through
 ``kernels.ops.flash_attention(..., semantics="chunked")``: on CPU tensors
 that walks the reference's ``q_chunk``/``kv_chunk`` grid in plain PyTorch
@@ -11,14 +12,16 @@ that walks the reference's ``q_chunk``/``kv_chunk`` grid in plain PyTorch
 launches the flash kernel (``kernels/csrc/flash_attention_tc.cu`` on the
 tensor cores for bf16, ``flash_attention.cu`` for fp32), whose 64-key
 tiles round p against another running max than 512-key chunks would.
-Decode attends one query over a cache buffer.
+Decode attends one query over a cache buffer; a windowed layer keeps a
+rolling buffer of ``min(max_len, window)`` slots and attends the slots
+whose position lies within the window.
 
 bf16 operands enter the products as exact fp32 copies on the CPU, where
 the reference asks for fp32 accumulation; only the order of the sums
 differs.
 
-Not ported (ROADMAP Queue 1 item 10): sliding windows, cross-attention,
-bidirectional prefill and M-RoPE.  They raise ``NotImplementedError``.
+Not ported (ROADMAP Queue 1 item 10): cross-attention, bidirectional
+prefill and M-RoPE.  They raise ``NotImplementedError``.
 
 KV caches are updated in place (the port's form of the reference's
 donated cache); nothing inside a step is read back to the host.
@@ -99,18 +102,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype before p . v, through ``ops.flash_attention(...,
     semantics="chunked")``: CPU tensors walk the ``q_chunk`` x
     ``kv_chunk`` grid in plain PyTorch; CUDA tensors launch the flash
-    kernel, whose key tile is 64 whatever the chunks.  ``skip_masked_blocks`` changes only the
-    reference's schedule (fully masked blocks give p = 0 exactly), so it is
-    accepted and has no effect.  A window, and non-causal attention with
-    Sq != Skv (cross-attention), raise ``NotImplementedError``."""
+    kernel, whose key tile is 64 whatever the chunks.  ``window`` masks
+    key j for query i unless i - window < j (the reference's
+    ``_block_mask``).  ``skip_masked_blocks`` changes only the reference's
+    schedule, causal or banded (a fully masked block contributes exactly 0
+    once a valid key has arrived: corr = exp(-1e30 - m) = 0), so it is
+    accepted and has no effect.  Non-causal attention with Sq != Skv
+    (cross-attention) raises ``NotImplementedError``."""
     del skip_masked_blocks
-    if window is not None:
-        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
     if not causal and q.shape[1] != k.shape[1]:
         raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
     return kernel_ops.flash_attention(q, k, v, scale=scale, causal=causal,
                                       semantics="chunked", q_chunk=q_chunk,
-                                      kv_chunk=kv_chunk)
+                                      kv_chunk=kv_chunk, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -145,18 +149,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def init_self_cache(cfg: AttnConfig, batch: int, max_len: int,
                     dtype: torch.dtype = torch.bfloat16,
                     device: str | torch.device = "cuda") -> dict:
-    """A full-attention layer's cache of ``max_len`` slots, with an
+    """A layer's cache: ``max_len`` slots for full attention, a rolling
+    buffer of ``min(max_len, window)`` slots for a windowed layer
+    (``_cache_append`` writes slot length % size), with an
     absolute-position tag per slot and the count of tokens seen.
 
     ``dtype=torch.int8`` selects the quantized KV cache: sign-magnitude
     int8 codes with one bf16 scale per (batch, slot, kv-head)."""
-    if cfg.window is not None:
-        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    size = min(max_len, cfg.window) if cfg.window is not None else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
         "length": torch.zeros((), dtype=torch.int32, device=device),
     }
     if dtype == torch.int8:
@@ -211,15 +216,13 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: AttnConfig, *,
                     xbar: XbarMode | None = None,
                     compute_dtype: torch.dtype = torch.bfloat16
                     ) -> tuple[torch.Tensor, dict | None]:
-    """Causal self-attention.
+    """Causal self-attention, banded to ``cfg.window`` keys if it is set.
 
     Prefill: ``cache is None`` and ``x`` (B, L, d) is the whole sequence.
     Decode: ``x`` is (B, 1, d) and ``cache`` holds the k/v buffers, which
     are updated in place and returned."""
     if cache is not None and "pos" not in cache:
         raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
-    if cfg.window is not None:
-        raise NotImplementedError(f"windowed attention is {NOT_PORTED}")
     if cache is None and not cfg.causal:
         raise NotImplementedError(f"bidirectional prefill is {NOT_PORTED}")
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -244,11 +247,13 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: AttnConfig, *,
             vc = _dequantize_kv(vc, cache["v_scale"])
         pos = cache["pos"]
         valid = (pos >= 0) & (pos <= cur)
+        if cfg.window is not None:
+            valid &= pos > cur - cfg.window
         y = decode_attention(q, kc, vc, valid[None, :].expand(B, -1),
                              scale=cfg.scale)
     else:
         y = chunked_attention(q, k, v, scale=cfg.scale, causal=True,
-                              window=None, q_chunk=cfg.q_chunk,
+                              window=cfg.window, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk,
                               skip_masked_blocks=cfg.skip_masked_blocks)
 

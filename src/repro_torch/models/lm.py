@@ -1,5 +1,6 @@
 """Decoder-only LM assembly: pattern-cycled blocks over stacked periods
-(port of ``repro/models/lm.py``, the ``attn`` block kind).
+(port of ``repro/models/lm.py``, the ``attn``, ``local`` and ``rec`` block
+kinds).
 
 The layer stack is grouped into *periods* (one cycle of
 ``cfg.block_pattern``), stacked on a leading axis as in the reference.
@@ -7,8 +8,11 @@ Where the reference runs them under ``jax.lax.scan``, the port runs a
 Python loop over views of the stacked parameters (no copies; one
 ``unbind`` per stacked leaf, whose backward stacks the periods' gradients
 in one pass) and casts each period's parameters to the compute dtype as
-the reference's scan body does.  Decode caches are stacked the same way
-and updated in place.
+the reference's scan body does.  Layers that do not fill a whole period
+(RecurrentGemma's trailing (rec, rec)) run after the periods, as the
+reference's suffix does.  Decode caches are stacked the same way (a rec
+block's conv window and state beside the attention blocks' k/v buffers)
+and updated in place through views.
 
 Under autograd a period's body is rematerialized as the reference's
 ``_remat_wrap`` asks (``cfg.remat``): ``"full"`` recomputes the whole
@@ -16,11 +20,16 @@ period in the backward (``torch.utils.checkpoint``, non-reentrant),
 ``"dots"`` saves the outputs of the products without batch dimensions
 (the projections' ``mm``/``addmm``: JAX's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
-``"none"`` saves everything.  Remat changes no value.
+``"none"`` saves everything.  Remat wraps a period whatever its kinds
+and changes no value.
 
-Only the ``attn`` kind (pre-norm self-attention + MLP, the dense
-architectures) is ported; ``local``, ``moe``, ``rec`` and ``ssd`` blocks
-and VLM patches raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+Block kinds:
+  attn   pre-norm self-attention + MLP          (dense archs)
+  local  windowed self-attention + MLP          (recurrentgemma)
+  rec    RG-LRU recurrent block + MLP           (recurrentgemma)
+
+``moe`` and ``ssd`` blocks and VLM patches raise ``NotImplementedError``
+(ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.layers import attention as attn_mod
 from repro_torch.layers.attention import NOT_PORTED
 from repro_torch.layers import embedding as emb_mod
 from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers import rglru as rglru_mod
 from repro_torch.layers.linear import XbarMode
 from repro_torch.layers.norms import (layernorm_apply, layernorm_spec,
                                       rmsnorm_apply, rmsnorm_spec)
@@ -49,9 +59,16 @@ def _norm_fns(cfg: ModelConfig):
     return rmsnorm_spec, rmsnorm_apply
 
 
+KINDS = ("attn", "local", "rec")
+
+
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is {NOT_PORTED}")
+
+
+def _window(cfg: ModelConfig, kind: str) -> int | None:
+    return cfg.window if kind == "local" else None
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +79,12 @@ def block_spec(cfg: ModelConfig, kind: str, xbar: XbarMode | None) -> dict:
     _check_kind(kind)
     nspec, _ = _norm_fns(cfg)
     d = cfg.d_model
-    return {"ln1": nspec(d),
-            "attn": attn_mod.attention_spec(cfg.attn(None), xbar),
+    if kind == "rec":
+        mix = {"mix": rglru_mod.rglru_spec(cfg.rglru(), xbar)}
+    else:
+        mix = {"attn": attn_mod.attention_spec(
+            cfg.attn(_window(cfg, kind)), xbar)}
+    return {"ln1": nspec(d), **mix,
             "ln2": nspec(d),
             "mlp": mlp_mod.mlp_spec(d, cfg.d_ff, gated=cfg.gated_mlp,
                                     xbar=xbar)}
@@ -75,10 +96,15 @@ def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
                 ) -> tuple[torch.Tensor, dict | None]:
     _check_kind(kind)
     _, napply = _norm_fns(cfg)
-    h, cache = attn_mod.attention_apply(
-        params["attn"], napply(params["ln1"], x), cfg.attn(None),
-        positions=positions, cache=cache, xbar=xbar,
-        compute_dtype=compute_dtype)
+    if kind == "rec":
+        h, cache = rglru_mod.rglru_apply(
+            params["mix"], napply(params["ln1"], x), cfg.rglru(),
+            cache=cache, xbar=xbar, compute_dtype=compute_dtype)
+    else:
+        h, cache = attn_mod.attention_apply(
+            params["attn"], napply(params["ln1"], x),
+            cfg.attn(_window(cfg, kind)), positions=positions, cache=cache,
+            xbar=xbar, compute_dtype=compute_dtype)
     x = x + h
     h = mlp_mod.mlp_apply(params["mlp"], napply(params["ln2"], x),
                           act=cfg.mlp_act, xbar=xbar,
@@ -88,9 +114,14 @@ def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device) -> dict:
+    """A block's decode cache: a rec block's conv window and state (fp32,
+    whatever ``dtype``, as the reference's), else the attention cache of
+    ``dtype``, rolling for a local block."""
     _check_kind(kind)
-    return attn_mod.init_self_cache(cfg.attn(None), batch, max_len, dtype,
-                                    device)
+    if kind == "rec":
+        return rglru_mod.init_rglru_cache(cfg.rglru(), batch, device=device)
+    return attn_mod.init_self_cache(cfg.attn(_window(cfg, kind)), batch,
+                                    max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------

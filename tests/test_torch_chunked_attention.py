@@ -206,8 +206,9 @@ def test_skip_masked_blocks_and_past_diagonal_chunks_change_nothing(dtype):
 def test_unported_chunked_attention_raises():
     x = torch.zeros(1, 16, 2, 16)
     kw = dict(scale=0.25, q_chunk=8, kv_chunk=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tattn.chunked_attention(x, x, x, causal=True, window=4, **kw)
+    # windows are ported (tests/test_torch_hybrid.py); cross-attention not
+    assert tattn.chunked_attention(x, x, x, causal=True, window=4,
+                                   **kw).shape == x.shape
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tattn.chunked_attention(x, x[:, :8], x[:, :8], causal=False,
                                 window=None, **kw)
@@ -240,7 +241,7 @@ def test_prefill_runs_chunked_attention_at_the_layer_chunks(monkeypatch):
     tattn.attention_apply(params, x, cfg, positions=pos,
                           compute_dtype=torch.float32)
     assert seen == [dict(scale=cfg.scale, causal=True, q_chunk=32,
-                         kv_chunk=32)]
+                         kv_chunk=32, window=None)]
 
 
 def test_semantics_and_head_widths_the_kernels_do_not_take_raise():
@@ -248,13 +249,13 @@ def test_semantics_and_head_widths_the_kernels_do_not_take_raise():
     for fn in (tops.flash_attention, fak.flash_attention_kernel):
         with pytest.raises(ValueError, match="semantics must be one of"):
             fn(q, k, v, scale=0.25, semantics="flash")
-    # bf16 goes to the tensor-core kernel: hd 16, 32, 64 or 128 only, and
+    # bf16 goes to the tensor-core kernel: hd 16, 32, 64, 128 or 256 only, and
     # the wrapper says so before it looks for a card
     odd = torch.zeros(1, 16, 4, 48, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="tensor-core flash kernel takes"):
         fak.flash_attention_kernel(odd, odd[:, :, :2], odd[:, :, :2],
                                    scale=0.125)
-    # fp32 goes to the CUDA-core kernel, which takes any hd <= 128
+    # fp32 goes to the CUDA-core kernel, which takes any hd <= 256
     with pytest.raises(ValueError, match="CUDA device"):
         fak.flash_attention_kernel(odd.float(), odd[:, :, :2].float(),
                                    odd[:, :, :2].float(), scale=0.125)

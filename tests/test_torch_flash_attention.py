@@ -208,7 +208,7 @@ def test_kernel_launcher_refuses_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="multiple of K"):
         tops.flash_attention(q, k[:, :, :1].expand(1, 16, 3, 16),
                              v[:, :, :1].expand(1, 16, 3, 16), scale=0.25)
-    wide = torch.zeros(1, 4, 2, 160)
+    wide = torch.zeros(1, 4, 2, 260)
     with pytest.raises(ValueError, match="head widths"):
         tops.flash_attention(wide, wide, wide, scale=0.125)
 
@@ -223,8 +223,9 @@ def test_wrapper_hands_strided_operands_to_the_kernel_uncopied(monkeypatch):
     q, k, v = qb.transpose(1, 2), kb.transpose(1, 2), kb.transpose(1, 2)
     seen = []
 
-    def record(*tensors, scale, causal, semantics):
+    def record(*tensors, scale, causal, semantics, window):
         assert semantics == "pallas"            # the wrapper's default
+        assert window is None
         seen.append([(t.data_ptr(), t.stride()) for t in tensors])
         return torch.empty(q.shape, device="meta")
 

@@ -102,7 +102,7 @@ def test_configs_and_param_count_equal_the_reference(arch):
 
 
 def test_registry_lists_only_what_the_port_builds():
-    assert sorted(tcfg.list_archs()) == sorted(DENSE)
+    assert sorted(tcfg.list_archs()) == sorted(DENSE + ["recurrentgemma-9b"])
     assert tcfg.SHAPES == jcfg.SHAPES
     cfg = tcfg.get_config("qwen2-0.5b")
     assert tcfg.shape_applicable(cfg, "long_500k")[0] is False
@@ -112,8 +112,11 @@ def test_registry_lists_only_what_the_port_builds():
 
 def test_unported_kinds_and_families_raise():
     cfg = tcfg.get_reduced_config(ARCH)
-    for bad in (cfg.replace(block_pattern=("attn", "local")),
+    # local (windowed) blocks are ported (tests/test_torch_hybrid.py)
+    tbuild(cfg.replace(block_pattern=("attn", "local"), window=8), "cpu")
+    for bad in (cfg.replace(block_pattern=("attn", "moe")),
                 cfg.replace(block_pattern=("moe",)),
+                cfg.replace(block_pattern=("ssd",)),
                 cfg.replace(vlm_patches=4)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             tbuild(bad, "cpu")

@@ -392,8 +392,10 @@ def test_unported_attention_raises():
     _, tp = _attn_params()
     x = torch.zeros(1, 4, 64)
     pos = torch.zeros(1, 4, dtype=torch.long)
-    for cfg, kw in ((tattn.AttnConfig(**ACFG, window=8), {}),
-                    (tattn.AttnConfig(**ACFG, causal=False), {}),
+    # windows are ported (tests/test_torch_hybrid.py)
+    assert tattn.attention_apply(tp, x, tattn.AttnConfig(**ACFG, window=8),
+                                 positions=pos)[0].shape == x.shape
+    for cfg, kw in ((tattn.AttnConfig(**ACFG, causal=False), {}),
                     (tattn.AttnConfig(**ACFG),            # cross-attention
                      {"cache": {"k": x, "v": x}}),
                     (tattn.AttnConfig(**ACFG, mrope_sections=(2, 3, 3)), {})):

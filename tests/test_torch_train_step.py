@@ -375,10 +375,10 @@ def test_flash_autograd_function_counts_and_differentiates(monkeypatch):
     plain version (no card here): each forward launches once and counts
     once, and its backward (``flash_attention_vjp``) gives the plain
     function's autograd gradient bit for bit."""
-    def plain_kernel(q, k, v, *, scale, causal, semantics):
+    def plain_kernel(q, k, v, *, scale, causal, semantics, window):
         return tfak.chunked_attention_plain(q, k, v, scale=scale,
                                             causal=causal, q_chunk=16,
-                                            kv_chunk=16)
+                                            kv_chunk=16, window=window)
 
     monkeypatch.setattr(tfak, "flash_attention_kernel", plain_kernel)
     monkeypatch.setattr(tops.flash_attention, "launches", 0)
