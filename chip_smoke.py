@@ -283,20 +283,51 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     kernel at Sq > window, 2 launches: wgmma in bf16 within 0.125, simt in
     float32 within 1e-3), and in float32 the same run on the CPU, each
     output within 1e-4 of its largest |value|; the step's seconds;
-20. prints the wave and training-step times (CUDA events), compiled beside
+20. the MoE family at full width with the depth cut (moonshot-v1-16b-a3b
+    to 18 layers, its dense first layer and 17 moe layers, 10.75 G fp32
+    parameters; qwen3-moe-30b-a3b to 16 moe layers, 10.59 G; from
+    ``init`` at seed 0, one after the other, after step 19's memory is
+    freed), each: (a) ``prefill_fn`` on 4 x 2048 tokens in bf16 at the
+    configured capacity (groups of 1024), the flash counts at 0 before and
+    read after: one launch per layer, all wgmma/chunked; logits finite,
+    pad columns -1e30; each moe layer's share of choices dropped
+    (``layers.moe.ROUTING``, read once after the call); the peak memory,
+    the time of one call (CUDA events), tokens/s, a profile with the idle
+    share, and one moe layer's one-hot dispatch and combine products by
+    device time beside its experts' products; (b) ``BatchedServer(
+    batch=4)`` serving the CLI's 8-token prompts (``max_new`` 16 for
+    moonshot, 8 for qwen3-moe), its decode logits and routing held
+    against ``prefill_fn`` on the same tokens (a check), both at the
+    no-drop capacity (capacity_factor = E / k): in float32 compute and
+    cache within 1e-3 where no routing flip reached, a flip only at a
+    near-tie (margin below 1e-6, counted); in bf16 the logits' relative
+    distance within twice the reference's own bf16-vs-float32 distance on
+    its reduced config (MOE_BF16_DIST, a fixed figure from the CPU: two
+    bf16 computations, each that near the float32 result), the flips
+    counted; tokens the prefill argmax but at near-ties or where a flip
+    reached (counted); ms per step and a profiled bf16 step; (d) the
+    reduced config on the card against the CPU: a float32 prefill of 2 x
+    64 tokens at the configured capacity (choices drop) and 8 decode
+    steps, routing equal but at counted near-ties, each output within 1e-4
+    of its largest |value|; and step 18 (c)'s ``make_train_step`` check
+    in standard and crossbar kernel mode (the loss, its aux term, every
+    gradient leaf; the crossbar and fp32 flash launches counted).  No
+    full-width training: adamw's moments would double the parameters;
+21. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18 and
-    19 run, which come last of the paths, so that their large allocations
-    and long profiles disturb nothing else —, one ``{"kernels": [...]}``
-    line with
-    eight entries (the fp32 flash kernel as ``flash_attention_simt``; the
-    crossbar kernels' ``launches`` include steps 12-18, broken down in
-    ``launches_faults_and_farm``, ``launches_pipeline`` and
-    ``launches_lm_train``, the flash kernels' steps 18 and 19 in
-    ``launches_lm_train`` and ``launches_hybrid``, with the local layer's
+    by the counts its capture recorded) — all taken before steps 18,
+    19 and 20 run, which come last of the paths, so that their large
+    allocations and long profiles disturb nothing else —, one
+    ``{"kernels": [...]}`` line with eight entries (the fp32 flash kernel
+    as ``flash_attention_simt``; the crossbar kernels' ``launches``
+    include steps 12-18 and 20, broken down in
+    ``launches_faults_and_farm``, ``launches_pipeline``,
+    ``launches_lm_train`` and ``launches_moe``, the flash kernels' steps
+    18-20 in ``launches_lm_train``, ``launches_hybrid`` and
+    ``launches_moe``, with the local layer's
     and hd 256's timings and the backward's yardsticks beside;
     ``crossbar_dw`` carries ``farm_step_local_dw``), and last ``{"ok":
     true, "device": {...}}``.
@@ -4200,21 +4231,47 @@ def count_near_boundaries(tq) -> tuple[dict, callable]:
     return seen, restore
 
 
-def lm_train_card_vs_cpu(ops) -> dict:
-    """Step 18 (c): one reduced qwen2-0.5b ``make_train_step`` step (sgd
-    0.1, float32 compute) on the card against the same step on the CPU,
-    from the same parameters and batch, in standard and kernel mode, the
-    counts at 0 before and read after.  The loss and grad norm within
-    1e-5 relative, each gradient leaf within CPU_STEP_BAR of its largest
-    magnitude, each new parameter within 1e-6 (1 + |p|) + 0.1 x that; in
-    kernel mode a miss is excused only where the card's quantizers saw an
-    input within QUANT_NEAR of a code boundary (then the loss within 1e-4
-    and each leaf within 10 % in the norm, counted)."""
+def xbar_projections(params) -> tuple[int, int]:
+    """The crossbar products one forward launches, as (outside the
+    periods, inside them): the paired (g_plus, g_minus) projections, a
+    stacked one once per period; the head's product is plain and is not
+    counted.  Remat recomputes only the periods' in the backward."""
+    from repro_torch.dist.sharding import tree_leaves
+
+    def walk(tree, mult):
+        if isinstance(tree, dict):
+            if "g_plus" in tree:
+                return mult
+            return sum(walk(v, mult) for v in tree.values())
+        if isinstance(tree, (tuple, list)):
+            return sum(walk(v, mult) for v in tree)
+        return 0
+    outside = sum(walk(v, 1) for k, v in params.items()
+                  if k not in ("stack", "lm_head"))
+    inside = (walk(params["stack"], tree_leaves(params["stack"])[0].shape[0])
+              if "stack" in params else 0)
+    return outside, inside
+
+
+def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
+    """Step 18 (c) and 20 (d): one reduced ``make_train_step`` step of
+    ``arch`` (sgd 0.1, float32 compute) on the card against the same step
+    on the CPU, from the same parameters and batch, in standard and
+    kernel mode, the counts at 0 before and read after.  The loss, its
+    aux term and the grad norm within 1e-5 relative, each gradient leaf
+    within CPU_STEP_BAR of its largest magnitude, each new parameter
+    within 1e-6 (1 + |p|) + 0.1 x that; a miss is excused only where the
+    card's quantizers (kernel mode) saw an input within QUANT_NEAR of a
+    code boundary or its MoE routers a near-tie (margin below
+    MOE_NEAR_TIE), counted: then the loss within 1e-4 and each leaf
+    within 10 % in the norm."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core import quantization as tq
     from repro_torch.data import TokenStream
     from repro_torch.dist.sharding import tree_leaves, tree_map
+    from repro_torch.layers import moe
     from repro_torch.models import build_model
+    from repro_torch.models.lm import stack_layout
     from repro_torch.optim import Optimizer, sgd
     from repro_torch.runtime import make_train_step
     out = {}
@@ -4224,7 +4281,7 @@ def lm_train_card_vs_cpu(ops) -> dict:
     zero_flash_counts(ops)
     for mode, kw in (("standard", {}),
                      ("kernel", dict(crossbar=True, xbar_use_kernel=True))):
-        cfg = get_reduced_config(LM_ARCH, compute_dtype="float32", **kw)
+        cfg = get_reduced_config(arch, compute_dtype="float32", **kw)
         p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(
             SEED))
         batch = TokenStream(cfg.vocab_size, 64, 4, seed=SEED).batch_at(0)
@@ -4239,15 +4296,22 @@ def lm_train_card_vs_cpu(ops) -> dict:
 
             opt = Optimizer(base.init, update, "sgd")
             params = tree_map(lambda t: t.to(dev, copy=True), p0)
+            if mode == "kernel":
+                outside, inside = xbar_projections(params)
             seen, restore = count_near_boundaries(tq)
+            moe.ROUTING = []
             try:
                 params, _, m = make_train_step(build_model(cfg, dev), opt)(
                     params, opt.init(params),
                     {k: v.to(dev) for k, v in batch.items()}, 0)
+                ties = sum(int((r.margin < MOE_NEAR_TIE).sum())
+                           for r in moe.ROUTING)
             finally:
                 restore()
+                moe.ROUTING = None
             runs[dev] = ({k: float(v) for k, v in m.items()}, seen_g[0],
-                         [t.cpu() for t in tree_leaves(params)], seen["n"])
+                         [t.cpu() for t in tree_leaves(params)],
+                         seen["n"] + ties)
         (mc, gc, pc, near), (mp, gp, pp, _) = runs["cuda"], runs["cpu"]
         err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
             1e-30)) for a, b in zip(gc, gp))
@@ -4256,34 +4320,40 @@ def lm_train_card_vs_cpu(ops) -> dict:
                    for a, b, g in zip(pc, pp, gp))
         loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
         gn_rel = abs(mc["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+        aux_rel = abs(mc["aux"] - mp["aux"]) / max(abs(mp["aux"]), 1e-30)
         strict = (err <= CPU_STEP_BAR and perr <= CPU_STEP_BAR
-                  and loss_rel <= 1e-5 and gn_rel <= 1e-5)
+                  and loss_rel <= 1e-5 and gn_rel <= 1e-5
+                  and aux_rel <= 1e-5)
         if not strict:
             nrel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(
                 b).clamp_min(1e-30)) for a, b in zip(gc, gp))
-            if mode == "standard" or near == 0 or loss_rel > 1e-4 \
-                    or nrel > 0.1:
-                raise AssertionError(f"card vs CPU ({mode}): gradient "
-                                     f"{err}, parameters {perr}, loss "
-                                     f"{loss_rel}, grad norm {gn_rel}, "
-                                     f"{near} near-boundary inputs")
+            if near == 0 or loss_rel > 1e-4 or nrel > 0.1:
+                raise AssertionError(f"card vs CPU ({arch} {mode}): "
+                                     f"gradient {err}, parameters {perr}, "
+                                     f"loss {loss_rel}, aux {aux_rel}, "
+                                     f"grad norm {gn_rel}, {near} "
+                                     f"near-boundary inputs or near-ties")
         out[mode] = {"max |grad err| / max |grad|": err,
                      "new params, err over the bar's step part": perr,
                      "loss rel": loss_rel, "grad norm rel": gn_rel,
+                     "aux": mc["aux"], "aux rel": aux_rel,
                      "strict": strict,
-                     "quantizer inputs near a boundary (card)": near}
+                     "quantizer inputs near a boundary or routing "
+                     "near-ties (card)": near}
     launches = {n: getattr(ops, n).launches for n in names}
-    layers = get_reduced_config(LM_ARCH).n_layers
-    per_pass = XB_PROJECTIONS * layers
-    want = {"crossbar_fwd": 2 * per_pass, "crossbar_bwd": per_pass,
-            "crossbar_dw": per_pass}
+    lay = stack_layout(get_reduced_config(arch))
+    # a step: the forward, and the periods' layers again under remat
+    flash = (len(lay.prefix) + len(lay.suffix)
+             + 2 * lay.periods * len(lay.pattern))
+    want = {"crossbar_fwd": outside + 2 * inside,     # remat: periods twice
+            "crossbar_bwd": outside + inside, "crossbar_dw": outside + inside}
     if launches != want:
         raise AssertionError(f"card vs CPU kernel mode ran {launches}, "
                              f"expected {want}")
     out["launches"] = launches
     out["flash_attention launches"] = ops.flash_attention.launches
-    check_flash_counts(ops, 2 * 2 * layers, "simt", "card vs CPU steps")
-    print(f"LM training, card vs CPU (reduced qwen2-0.5b, float32 compute, "
+    check_flash_counts(ops, 2 * flash, "simt", "card vs CPU steps")
+    print(f"LM training, card vs CPU (reduced {arch}, float32 compute, "
           f"one sgd step each in standard and kernel mode, bar "
           f"{CPU_STEP_BAR} of each leaf's largest gradient): "
           + json.dumps(out))
@@ -4578,6 +4648,402 @@ def hybrid_path(ops) -> dict:
     del params
     torch.cuda.empty_cache()
     out["reduced"] = hybrid_reduced(ops)
+    return out
+
+
+# -- the MoE family (moonshot-v1-16b-a3b, qwen3-moe-30b-a3b, depth cut) ------
+
+# full width, the depth cut to fit 80 GB with fp32 parameters at rest:
+# moonshot keeps its dense first layer and 17 moe layers, qwen3-moe 16
+MOE_ARCHS = {"moonshot-v1-16b-a3b": 18, "qwen3-moe-30b-a3b": 16}
+MOE_SERVE_NEW = {"moonshot-v1-16b-a3b": 16, "qwen3-moe-30b-a3b": 8}
+MOE_SERVE_MAX_LEN = 64
+MOE_NEAR_TIE = 1e-6      # fp32: routing may differ only below this margin
+# bf16 decode against bf16 prefill, relative Frobenius distance of the
+# logits: d, the reference's own bf16-vs-float32 distance on its reduced
+# config, the largest over 8 batches of 4 x 16 tokens from numpy seeds
+# 0-7 at the no-drop capacity (each batch's is one count of routing flips:
+# 0.013-0.052 for moonshot, 0.010-0.086 for qwen3-moe), measured on the
+# CPU; tests/test_torch_moe.py computes it again and holds these figures
+# to it.  Decode and prefill are two bf16 computations of one function:
+# each as near the float32 result as the reference's bf16 lies within d
+# of it, so the two lie within 2 d of each other
+MOE_BF16_DIST = {"moonshot-v1-16b-a3b": 0.05215,
+                 "qwen3-moe-30b-a3b": 0.08575}
+
+
+def moe_no_drop(cfg):
+    """``cfg`` at capacity_factor = E / k: C = the group, nothing drops, so
+    a prefill computes what decode steps compute."""
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def moe_product_ms(cfg, tokens: int) -> dict:
+    """Device time (CUDA events) of one moe layer's products at a prefill
+    of ``tokens`` tokens in groups of ``moe_group_size``, bf16, on random
+    operands of the path's shapes: the one-hot dispatch and combine, and
+    the experts' three products; with their FLOPs."""
+    from repro_torch.layers.moe import _capacity
+    m = cfg.moe()
+    s = min(m.group_size, tokens)
+    G, E, C, d, f = tokens // s, m.n_experts, _capacity(m, s), m.d_model, \
+        m.d_expert
+    bf = torch.bfloat16
+    oh = torch.rand(G, s, E, C, device="cuda").lt(1 / E).to(bf)
+    xt = torch.randn(G, s, d, device="cuda", dtype=bf)
+    xe = torch.randn(G, E, C, d, device="cuda", dtype=bf)
+    h = torch.randn(G, E, C, f, device="cuda", dtype=bf)
+    wi = torch.randn(E, d, f, device="cuda", dtype=bf)
+    wo = torch.randn(E, f, d, device="cuda", dtype=bf)
+    out = {
+        "dispatch ms": cuda_ms(lambda: torch.einsum("gsec,gsd->gecd", oh,
+                                                    xt), iters=5),
+        "combine ms": cuda_ms(lambda: torch.einsum("gsec,gecd->gsd", oh,
+                                                   xe), iters=5),
+        "experts ms (wg, wi, wo)": 2 * cuda_ms(
+            lambda: torch.einsum("gecd,edf->gecf", xe, wi), iters=5)
+        + cuda_ms(lambda: torch.einsum("gecf,efd->gecd", h, wo), iters=5),
+        "one-hot products TFLOP": 2 * 2 * G * s * E * C * d / 1e12,
+        "expert products TFLOP": 3 * 2 * G * E * C * d * f / 1e12,
+        "groups x group x experts x capacity": [G, s, E, C]}
+    return out
+
+
+def moe_prefill(ops, model, params) -> dict:
+    """Step 20 (a): ``prefill_fn`` at full width (depth cut) on
+    PREFILL_BATCH x PREFILL_LEN tokens from SEED in bf16, at the
+    configured capacity (groups of 1024), the flash counts at 0 before and
+    read after: one launch per layer, all wgmma/chunked; logits finite,
+    pad columns -1e30; each moe layer's share of choices dropped, read
+    once after the call; the peak memory, the time of one more call (CUDA
+    events), tokens/s, a profile with the idle share, and one moe layer's
+    one-hot and expert products by device time."""
+    from repro_torch.layers import moe
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=gen, device=model.device,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(ops)
+    moe.ROUTING = []
+    try:
+        logits = model.prefill_fn(params, batch)
+        routing = moe.ROUTING
+    finally:
+        moe.ROUTING = None
+    torch.cuda.synchronize()
+    launches = ops.flash_attention.launches
+    check_flash_counts(ops, cfg.n_layers, "wgmma", f"{cfg.name} prefill")
+    n_moe = cfg.layer_kinds().count("moe")
+    if len(routing) != n_moe:
+        raise AssertionError(f"{len(routing)} moe calls, expected {n_moe}")
+    want_shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
+    if logits.shape != want_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, expected {want_shape}")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{cfg.name} prefill logits not finite")
+    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
+        raise AssertionError("prefill pad columns are not -1e30")
+    dropped = [round(v, 5) for v in torch.stack(
+        [1 - r.kept.float().mean() for r in routing]).tolist()]
+    peak = torch.cuda.max_memory_allocated()
+    del logits, routing
+    ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=1, warmup=0)
+    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1)
+    products = moe_product_ms(cfg, PREFILL_BATCH * PREFILL_LEN)
+    one_hot = products["dispatch ms"] + products["combine ms"]
+    out = {"layers": cfg.n_layers, "parameters": cfg.param_count(),
+           "flash_attention launches": launches, "route": "wgmma/chunked",
+           "share of choices dropped by moe layer": dropped,
+           "mean share dropped": sum(dropped) / len(dropped),
+           "peak GB": peak / 1e9, "prefill ms": ms,
+           "prefill tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
+           "one moe layer's products": products,
+           "one-hot products, all moe layers, ms": n_moe * one_hot,
+           "one-hot products, share of the prefill": n_moe * one_hot / ms,
+           "profile": prof}
+    print(f"moe prefill ({cfg.name}, full width cut to {cfg.n_layers} "
+          f"layers, {out['parameters']:,} parameters, bf16 compute, "
+          f"{PREFILL_BATCH} x {PREFILL_LEN} tokens, groups of "
+          f"{cfg.moe_group_size}): {launches} flash_attention launches (one "
+          f"per layer, all wgmma/chunked), logits {want_shape} finite; "
+          f"choices dropped by layer {dropped}; peak {peak / 1e9:.2f} GB; "
+          f"{ms:.3f} ms, {out['prefill tokens/s']:.0f} tokens/s; one-hot "
+          f"dispatch + combine {one_hot:.3f} ms a layer against the "
+          f"experts' {products['experts ms (wg, wi, wo)']:.3f} ms "
+          f"({out['one-hot products, share of the prefill']:.3f} of the "
+          f"prefill); profile span {prof['span_ms']:.3f} ms, busy "
+          f"{ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])}")
+    print(f"moe prefill profile ({cfg.name}, profiler on): "
+          + json.dumps(prof))
+    return out
+
+
+def moe_serve(ops, model, params, BatchedServer, new: int) -> dict:
+    """``BatchedServer(batch=4)`` serves ``launch/serve.py``'s 8-token
+    prompts with ``max_new=new`` in the model's compute dtype and a cache
+    of it, its decode logits and routing recorded step by step; then
+    ``prefill_fn`` on each slot's prompt + generated tokens (a check: its
+    launches are not the path's), its routing recorded."""
+    from repro_torch.layers import moe
+    cfg = model.cfg
+    dtype = getattr(torch, cfg.compute_dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
+               for i in range(SERVE_BATCH)]
+    server = BatchedServer(model, params, batch=SERVE_BATCH,
+                           max_len=MOE_SERVE_MAX_LEN, cache_dtype=dtype)
+    rec, routes = [], []
+
+    def recording(p, cache, batch):
+        moe.ROUTING = []
+        try:
+            logits, cache = model.decode_fn(p, cache, batch)
+            routes.append(moe.ROUTING)
+        finally:
+            moe.ROUTING = None
+        rec.append(logits[:, -1, :cfg.vocab_size].clone())
+        return logits, cache
+
+    server.decode = recording
+    zero_flash_counts(ops)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = server.generate(prompts, new)
+    end.record()
+    end.synchronize()
+    launches = ops.flash_attention.launches
+    steps, toks = server.stats.steps, server.stats.tokens_out
+    if (steps, toks) != (8 + new - 1, SERVE_BATCH * new):
+        raise AssertionError(f"server: {steps} steps, {toks} tokens")
+    seqs = torch.tensor([p + o for p, o in zip(prompts, outs)],
+                        dtype=torch.int32, device=model.device)
+    zero_flash_counts(ops)
+    moe.ROUTING = []
+    try:
+        full = model.prefill_fn(params, {"tokens": seqs})[
+            ..., :cfg.vocab_size]
+        pre_routes = moe.ROUTING
+    finally:
+        moe.ROUTING = None
+    torch.cuda.synchronize()
+    check_flash_counts(ops, cfg.n_layers, route,
+                       f"the check's prefill ({cfg.compute_dtype})")
+    return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
+            "dec_routes": routes, "pre_routes": pre_routes,
+            "seqs": seqs, "outs": outs, "server": server, "steps": steps,
+            "tokens": toks, "ms": start.elapsed_time(end),
+            "launches": launches}
+
+
+def moe_flips(run: dict, near: float | None) -> tuple[torch.Tensor, dict]:
+    """Decode routing against the check's prefill routing, step by step
+    and layer by layer: a flip (other experts) at a (slot, step) reaches
+    the slot's later steps.  With ``near``, a flip that no earlier flip
+    reached must lie at a near-tie of the prefill's routing (margin below
+    ``near``).  Returns the reached (slot, step) mask on the host and the
+    counts."""
+    steps, B = run["steps"], SERVE_BATCH
+    dec = torch.stack([torch.stack([r.top_i.reshape(B, -1) for r in step])
+                       for step in run["dec_routes"]])     # (steps, l, B, k)
+    pre = torch.stack([r.top_i.reshape(B, -1, r.top_i.shape[-1])[:, :steps]
+                       for r in run["pre_routes"]])        # (l, B, steps, k)
+    margin = torch.stack([r.margin.reshape(B, -1)[:, :steps]
+                          for r in run["pre_routes"]])     # (l, B, steps)
+    flip = (dec.permute(1, 2, 0, 3) != pre).any(-1).cpu()  # (l, B, steps)
+    margin = margin.cpu()
+    reached = torch.zeros(B, steps, dtype=torch.bool)
+    roots, root_margins = 0, []
+    for t in range(steps):
+        for layer in range(flip.shape[0]):
+            root = flip[layer, :, t] & ~reached[:, t]
+            if bool(root.any()):
+                m = margin[layer, :, t][root]
+                if near is not None and bool((m >= near).any()):
+                    raise AssertionError(f"decode routing differs from the "
+                                         f"prefill's at margins {m.tolist()}"
+                                         f" (near-tie bar {near})")
+                roots += int(root.sum())
+                root_margins += m.tolist()
+            for b in torch.nonzero(flip[layer, :, t]).flatten().tolist():
+                reached[b, t:] = True
+    return reached, {"routing flips at a fresh position": roots,
+                     "their prefill margins": root_margins,
+                     "(slot, step) positions reached": int(reached.sum())}
+
+
+def moe_check_decode(run: dict, compute: str, arch: str) -> dict:
+    """float32: decode logits within LOGIT_BAR of the prefill's at every
+    (slot, step) no routing flip reached, flips only at near-ties
+    (MOE_NEAR_TIE); bf16: the logits' relative Frobenius distance within
+    2 x MOE_BF16_DIST[arch], the flips counted.  Either way every generated
+    token is the prefill argmax but at a top-2 gap within LOGIT_BAR or
+    where a flip reached its slot (counted)."""
+    dec, pre = run["dec"], run["pre"]
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{arch} {compute}: decode logits not finite")
+    reached, flips = moe_flips(run, MOE_NEAR_TIE if compute == "float32"
+                               else None)
+    ok = ~reached.to(dec.device)
+    err = float((dec - pre).abs()[ok].max()) if bool(ok.any()) else 0.0
+    rel = float(torch.linalg.norm(dec - pre) / torch.linalg.norm(pre))
+    bar = LOGIT_BAR[compute]
+    if compute == "float32" and not err <= bar:
+        raise AssertionError(f"{arch} float32: decode vs prefill max |Δ| "
+                             f"{err} > {bar} where no routing flip reached")
+    if compute == "bfloat16" and not rel <= 2 * MOE_BF16_DIST[arch]:
+        raise AssertionError(f"{arch} bf16: decode vs prefill relative "
+                             f"distance {rel} > 2 x {MOE_BF16_DIST[arch]}")
+    top2 = torch.topk(pre[:, 7:], 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    off = torch.tensor(run["outs"], device=pre.device) != \
+        pre[:, 7:].argmax(-1)
+    if bool((off & (gap > bar) & ok[:, 7:]).any()):
+        raise AssertionError(f"{arch} {compute}: a generated token is not "
+                             f"the prefill argmax away from a near-tie or "
+                             f"a routing flip")
+    return {"max |decode - prefill| logit where no flip reached": err,
+            "relative distance ||decode - prefill|| / ||prefill||": rel,
+            "bar": bar if compute == "float32" else 2 * MOE_BF16_DIST[arch],
+            **flips,
+            "tokens excused (near-tie or flip)": int(off.sum()),
+            "steps": run["steps"], "tokens_out": run["tokens"],
+            "decode ms per step": run["ms"] / run["steps"],
+            "decode tokens/s": run["tokens"] / run["ms"] * 1e3,
+            "flash_attention launches in BatchedServer.generate":
+                run["launches"]}
+
+
+def moe_decode(ops, arch, model, model32, params, BatchedServer) -> dict:
+    """Step 20 (b): ``moe_serve`` at the no-drop capacity in float32
+    compute (float32 cache), then in bf16 (bf16 cache), each held by
+    ``moe_check_decode``; ms per step and one profiled bf16 step."""
+    out = {}
+    for compute, m in (("float32", model32), ("bfloat16", model)):
+        run = moe_serve(ops, m, params, BatchedServer, MOE_SERVE_NEW[arch])
+        out[compute] = moe_check_decode(run, compute, arch)
+        if compute == "bfloat16":
+            server, seqs, steps = run["server"], run["seqs"], run["steps"]
+            step_batch = {"tokens": seqs[:, -1:], "length": steps}
+            out[compute]["decode step profile"] = profile_device(
+                lambda: m.decode_fn(params, server.cache, step_batch))
+        del run
+    for compute, r in out.items():
+        err = r["max |decode - prefill| logit where no flip reached"]
+        rel = r["relative distance ||decode - prefill|| / ||prefill||"]
+        print(f"moe decode vs prefill ({arch}, {compute} compute and cache, "
+              f"no-drop capacity): {r['steps']} steps, {r['tokens_out']} "
+              f"tokens; max |decode - prefill| where no flip reached "
+              f"{err:.3e}, relative distance {rel:.3e} (bar {r['bar']}); "
+              f"{r['routing flips at a fresh position']} routing flips; "
+              f"{r['tokens excused (near-tie or flip)']} generated tokens "
+              f"differ from the prefill argmax; "
+              f"{r['decode ms per step']:.3f} ms per step, "
+              f"{r['decode tokens/s']:.1f} tokens/s")
+    prof = out["bfloat16"]["decode step profile"]
+    print(f"  one bf16 step under the profiler: {prof['span_ms']:.3f} ms "
+          f"span, device busy {ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])}")
+    return out
+
+
+def moe_reduced_serving(ops, arch) -> dict:
+    """Step 20 (d), serving: the reduced config in float32 compute at its
+    configured capacity, ``prefill_fn`` on 2 x 64 tokens (two groups of
+    64, where choices drop) and 8 decode steps (a float32 cache), on the
+    card and on the CPU from the same parameters: routing equal (experts
+    and keep masks) but at near-ties (MOE_NEAR_TIE, counted; their groups
+    then left out), each output within CARD_VS_CPU_BAR of its largest
+    |value|; the card's prefill runs the fp32 flash kernel, one launch a
+    layer."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist.sharding import tree_map
+    from repro_torch.layers import moe
+    from repro_torch.models import build_model
+    cfg = get_reduced_config(arch, compute_dtype="float32")
+    p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(SEED),
+                           dtype=torch.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), p0)
+        tok = tokens.to(dev)
+        zero_flash_counts(ops)
+        moe.ROUTING = []
+        try:
+            pre = model.prefill_fn(params, {"tokens": tok})
+            pre_routes = [(r.top_i.cpu(), r.kept.cpu(), r.margin.cpu())
+                          for r in moe.ROUTING]
+            if dev == "cuda":
+                check_flash_counts(ops, cfg.n_layers, "simt",
+                                   f"reduced {arch} float32 prefill")
+            cache = model.init_cache(2, 16, torch.float32)
+            dec = []
+            for step in range(8):
+                logits, cache = model.decode_fn(
+                    params, cache, {"tokens": tok[:, step:step + 1],
+                                    "length": step})
+                dec.append(logits)
+        finally:
+            moe.ROUTING = None
+        runs[dev] = (pre.cpu(), torch.cat(dec, dim=1).cpu(), pre_routes)
+    (pc, dc, rc), (pp, dp, rp) = runs["cuda"], runs["cpu"]
+    ties, groups_out = 0, torch.zeros(2, dtype=torch.bool)
+    for (ti, ki, mi), (tj, kj, _) in zip(rc, rp):
+        flip = (ti != tj).any(-1) | (ki != kj).any(1)       # (G, s)
+        if bool((mi[flip] >= MOE_NEAR_TIE).any()):
+            raise AssertionError(f"reduced {arch}: card and CPU route "
+                                 f"otherwise away from a near-tie")
+        ties += int(flip.sum())
+        groups_out |= flip.any(-1)
+    keep = ~groups_out                     # a group of 64 is one row here
+    rel = max(float((a[keep] - b[keep]).abs().max() / b[keep].abs().max())
+              if bool(keep.any()) else 0.0 for a, b in ((pc, pp), (dc, dp)))
+    if not rel <= CARD_VS_CPU_BAR:
+        raise AssertionError(f"reduced {arch} float32: card vs CPU {rel}")
+    dropped = sum(int((~k).sum()) for _, k, _ in rc)
+    out = {"card vs cpu, of each output's largest": rel,
+           "routing near-ties": ties, "choices dropped (prefill)": dropped,
+           "flash launches (prefill, card)": cfg.n_layers}
+    print(f"moe reduced serving ({arch} reduced, float32, 2 x 64 prefill at "
+          f"C = {moe._capacity(cfg.moe(), 64)} and 8 decode steps, card vs "
+          f"CPU): " + json.dumps(out))
+    return out
+
+
+def moe_path(ops) -> dict:
+    """The MoE family (module docstring, step 20)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import BatchedServer
+    out = {}
+    for arch, layers in MOE_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch, n_layers=layers)
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        res = {"init s": time.perf_counter() - t0}
+        res["prefill"] = moe_prefill(ops, model, params)
+        res["decode"] = moe_decode(
+            ops, arch, build_model(moe_no_drop(cfg), "cuda"),
+            build_model(moe_no_drop(cfg.replace(compute_dtype="float32")),
+                        "cuda"), params, BatchedServer)
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["reduced serving"] = moe_reduced_serving(ops, arch)
+        res["reduced training"] = lm_train_card_vs_cpu(ops, arch)
+        res["s"] = time.perf_counter() - t0
+        out[arch] = res
     return out
 
 
@@ -4950,6 +5416,21 @@ def main() -> int:
                                if isinstance(out, dict) else out)
                         for part, out in hybrid.items()}))
 
+    # -- the MoE family (step 20): step 19's memory freed first, each
+    # configuration's 42-43 GB of parameters freed before the next
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the moe path: {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated")
+    moe_res = moe_path(ops)
+    phase_s["moe path"] = time.perf_counter() - t0
+    print(f"moe path [{card}], {phase_s['moe path']:.1f} s: " + json.dumps(
+        {arch: {part: ({k: v for k, v in out.items() if "profile" not in k}
+                       if isinstance(out, dict) else out)
+                for part, out in res.items()}
+         for arch, res in moe_res.items()}))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -5013,8 +5494,13 @@ def main() -> int:
                "card vs CPU (reduced)":
                lm_train["card vs cpu"]["launches"][name]}
         for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")}
+    # the MoE path's: the reduced kernel-mode training steps (step 20 (d))
+    moe_counted = {
+        name: {f"{arch} reduced, card vs CPU": res["reduced training"][
+            "launches"][name] for arch, res in moe_res.items()}
+        for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")}
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
-                        *lm_counted.items()):
+                        *lm_counted.items(), *moe_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -5081,6 +5567,8 @@ def main() -> int:
         if name in farm_counted:
             entries[-1]["launches_faults_and_farm"] = farm_counted[name]
         entries[-1]["launches_pipeline"] = pipe_counted[name]
+        if name in moe_counted:
+            entries[-1]["launches_moe"] = moe_counted[name]
         if name in lm_counted:
             entries[-1]["launches_lm_train"] = lm_counted[name]
             entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]
@@ -5137,6 +5625,21 @@ def main() -> int:
         "flash_attention_simt": {
             "reduced prefill (float32)": hybrid["reduced"]["float32"][
                 "flash launches (prefill, card)"]}}
+    # the MoE path's launches (step 20): the full-width prefills, and the
+    # reduced float32 prefills and training steps on the fp32 kernel
+    moe_flash = {
+        "flash_attention": {
+            f"{arch} prefill ({MOE_ARCHS[arch]} layers)": res["prefill"][
+                "flash_attention launches"]
+            for arch, res in moe_res.items()},
+        "flash_attention_simt": {
+            f"{arch} reduced, {part}": n
+            for arch, res in moe_res.items()
+            for part, n in (
+                ("prefill (float32)", res["reduced serving"][
+                    "flash launches (prefill, card)"]),
+                ("training steps vs CPU", res["reduced training"][
+                    "flash_attention launches"]))}}
     bwd_yard = lm_train["standard"]["attention backward yardsticks"]
 
     def fw_row(dt, case):
@@ -5151,17 +5654,22 @@ def main() -> int:
              "under remat, all wgmma/chunked), and the hybrid path "
              "(launches_hybrid: recurrentgemma-9b's prefill, 12, one per "
              "local layer, and the reduced bf16 prefill, 2, all "
-             "wgmma/chunked with the window)"),
+             "wgmma/chunked with the window), and the MoE path "
+             "(launches_moe: one prefill of each MoE configuration, one "
+             "launch a layer, all wgmma/chunked)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
              "one per layer, all simt/chunked), the reduced float32 "
              "training steps held against the CPU (launches_lm_train) and "
              "the hybrid path's reduced float32 prefill (launches_hybrid: "
-             "2, simt/chunked with the window)")):
+             "2, simt/chunked with the window) and the MoE path's reduced "
+             "float32 prefills and training steps held against the CPU "
+             "(launches_moe)")):
         fa = fa_row(dt, "chunked")
         launches += sum(lm_flash[name].values())
         launches += sum(hybrid_flash[name].values())
+        launches += sum(moe_flash[name].values())
         local = fw_row(dt, "recurrentgemma local layer"
                        + (", fp32" if dt == "float32" else ""))
         hd256 = fw_row(dt, "hd 256, no window"
@@ -5182,6 +5690,7 @@ def main() -> int:
             "pallas_ms": fa_row(dt, "pallas")["ms"],
             "launches_lm_train": lm_flash[name],
             "launches_hybrid": hybrid_flash[name],
+            "launches_moe": moe_flash[name],
             "hybrid_local_layer": {k: local[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},

@@ -4,11 +4,12 @@
 ``ModelConfig`` keeps every field of the reference's, so a config module
 copies over unchanged and compares field for field.  The registry lists
 only the architectures the port can build: the four dense (``attn``-only)
-configs and the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
-``local`` windowed attention).  The MoE, SSM, encoder-decoder and VLM
-configs wait for their layers (ROADMAP Queue 1 item 10), and so do
-``moe()`` and ``ssd()``.  ``reduced()`` of each config module yields the
-CPU test variant (same topology, tiny widths).
+configs, the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
+``local`` windowed attention) and the MoE family (moonshot-v1-16b-a3b
+and qwen3-moe-30b-a3b: ``moe`` blocks after an optional dense prefix).
+The SSM, encoder-decoder and VLM configs wait for their layers (ROADMAP
+Queue 1 item 10), and so does ``ssd()``.  ``reduced()`` of each config
+module yields the CPU test variant (same topology, tiny widths).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import importlib
 from typing import Any
 
 from repro_torch.layers.attention import AttnConfig
+from repro_torch.layers.moe import MoeConfig
 from repro_torch.layers.rglru import RGLRUConfig
 
 
@@ -116,6 +118,13 @@ class ModelConfig:
             q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
             skip_masked_blocks=self.skip_masked_blocks)
 
+    def moe(self) -> MoeConfig:
+        return MoeConfig(
+            d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
+            d_expert=self.d_expert, n_shared_experts=self.n_shared_experts,
+            capacity_factor=self.capacity_factor,
+            group_size=self.moe_group_size, act=self.mlp_act)
+
     def rglru(self) -> RGLRUConfig:
         return RGLRUConfig(d_model=self.d_model,
                            d_rnn=self.d_rnn or self.d_model)
@@ -138,6 +147,16 @@ class ModelConfig:
         from repro_torch.models.lm import lm_spec
         return param_count(lm_spec(self))
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k + shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        total = self.param_count()
+        per_expert = 3 * self.d_model * self.d_expert
+        inactive = (self.n_experts - self.top_k) * per_expert * \
+            sum(1 for k in self.layer_kinds() if k == "moe")
+        return total - inactive
+
 
 # ---------------------------------------------------------------------------
 # Registry: the architectures the port builds
@@ -149,6 +168,8 @@ ARCH_MODULES = {
     "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_05b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
 }
 
 

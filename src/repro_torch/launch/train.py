@@ -4,7 +4,9 @@
       --reduced --steps 200 --batch 8 --seq 128 [--crossbar] \\
       [--ckpt-dir ckpts/run0] [--device cpu]
 
-Runs on ``--device cuda`` unless given ``--device cpu``; without a card
+``--arch`` takes any architecture of ``configs.list_archs()``; an MoE
+config's loss is the cross-entropy plus its load-balancing term (the
+logged ``aux``).  Runs on ``--device cuda`` unless given ``--device cpu``; without a card
 the CUDA default raises.  TF32 stays off, so float32 compute means full
 fp32 products.  ``--mesh`` other than ``none`` raises: meshed training
 waits for the port's ``dist/`` (ROADMAP Queue 1 step 5.4).

@@ -1,6 +1,6 @@
 """Decoder-only LM assembly: pattern-cycled blocks over stacked periods
-(port of ``repro/models/lm.py``, the ``attn``, ``local`` and ``rec`` block
-kinds).
+(port of ``repro/models/lm.py``, the ``attn``, ``local``, ``rec`` and
+``moe`` block kinds).
 
 The layer stack is grouped into *periods* (one cycle of
 ``cfg.block_pattern``), stacked on a leading axis as in the reference.
@@ -9,10 +9,19 @@ Python loop over views of the stacked parameters (no copies; one
 ``unbind`` per stacked leaf, whose backward stacks the periods' gradients
 in one pass) and casts each period's parameters to the compute dtype as
 the reference's scan body does.  Layers that do not fill a whole period
-(RecurrentGemma's trailing (rec, rec)) run after the periods, as the
-reference's suffix does.  Decode caches are stacked the same way (a rec
-block's conv window and state beside the attention blocks' k/v buffers)
-and updated in place through views.
+run unscanned and uncast: the MoE configs' dense prefix
+(``first_dense_layers``) before the periods, RecurrentGemma's trailing
+(rec, rec) after them, as the reference's prefix and suffix do.  Decode
+caches are stacked the same way (a rec block's conv window and state
+beside the attention blocks' k/v buffers) and updated in place through
+views.
+
+Every block returns its auxiliary loss (a ``moe`` block's load-balancing
+term; None for the others, whose term the reference adds as 0), and
+``lm_forward`` sums them in the reference's order: the prefix, each
+period in turn (the sum carried through the period body, as the scan's
+carry, so it leaves the remat'd body as an output and its gradient
+reaches the routers), then the suffix.
 
 Under autograd a period's body is rematerialized as the reference's
 ``_remat_wrap`` asks (``cfg.remat``): ``"full"`` recomputes the whole
@@ -27,9 +36,10 @@ Block kinds:
   attn   pre-norm self-attention + MLP          (dense archs)
   local  windowed self-attention + MLP          (recurrentgemma)
   rec    RG-LRU recurrent block + MLP           (recurrentgemma)
+  moe    pre-norm self-attention + MoE FFN      (moe archs)
 
-``moe`` and ``ssd`` blocks and VLM patches raise ``NotImplementedError``
-(ROADMAP Queue 1 item 10).
+``ssd`` blocks and VLM patches raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from repro_torch.layers import attention as attn_mod
 from repro_torch.layers.attention import NOT_PORTED
 from repro_torch.layers import embedding as emb_mod
 from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import rglru as rglru_mod
 from repro_torch.layers.linear import XbarMode
 from repro_torch.layers.norms import (layernorm_apply, layernorm_spec,
@@ -59,7 +70,7 @@ def _norm_fns(cfg: ModelConfig):
     return rmsnorm_spec, rmsnorm_apply
 
 
-KINDS = ("attn", "local", "rec")
+KINDS = ("attn", "local", "rec", "moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -84,16 +95,20 @@ def block_spec(cfg: ModelConfig, kind: str, xbar: XbarMode | None) -> dict:
     else:
         mix = {"attn": attn_mod.attention_spec(
             cfg.attn(_window(cfg, kind)), xbar)}
-    return {"ln1": nspec(d), **mix,
-            "ln2": nspec(d),
-            "mlp": mlp_mod.mlp_spec(d, cfg.d_ff, gated=cfg.gated_mlp,
-                                    xbar=xbar)}
+    if kind == "moe":
+        ffn = {"moe": moe_mod.moe_spec(cfg.moe(), xbar)}
+    else:
+        ffn = {"mlp": mlp_mod.mlp_spec(d, cfg.d_ff, gated=cfg.gated_mlp,
+                                       xbar=xbar)}
+    return {"ln1": nspec(d), **mix, "ln2": nspec(d), **ffn}
 
 
 def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
                 *, positions: torch.Tensor, cache: dict | None,
                 xbar: XbarMode | None, compute_dtype: torch.dtype
-                ) -> tuple[torch.Tensor, dict | None]:
+                ) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
+    """-> (x, cache, aux): ``aux`` the block's auxiliary loss, None where
+    the block has none (the reference's zeros)."""
     _check_kind(kind)
     _, napply = _norm_fns(cfg)
     if kind == "rec":
@@ -106,17 +121,24 @@ def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
             cfg.attn(_window(cfg, kind)), positions=positions, cache=cache,
             xbar=xbar, compute_dtype=compute_dtype)
     x = x + h
-    h = mlp_mod.mlp_apply(params["mlp"], napply(params["ln2"], x),
-                          act=cfg.mlp_act, xbar=xbar,
-                          compute_dtype=compute_dtype)
-    return x + h, cache
+    aux = None
+    if kind == "moe":
+        h, aux = moe_mod.moe_apply(params["moe"], napply(params["ln2"], x),
+                                   cfg.moe(), xbar=xbar,
+                                   compute_dtype=compute_dtype)
+    else:
+        h = mlp_mod.mlp_apply(params["mlp"], napply(params["ln2"], x),
+                              act=cfg.mlp_act, xbar=xbar,
+                              compute_dtype=compute_dtype)
+    return x + h, cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device) -> dict:
     """A block's decode cache: a rec block's conv window and state (fp32,
     whatever ``dtype``, as the reference's), else the attention cache of
-    ``dtype``, rolling for a local block."""
+    ``dtype`` (a moe block's self-attention too), rolling for a local
+    block."""
     _check_kind(kind)
     if kind == "rec":
         return rglru_mod.init_rglru_cache(cfg.rglru(), batch, device=device)
@@ -237,44 +259,59 @@ def _unstack(tree: Any) -> list[Any]:
     return out
 
 
+def _add_aux(aux: torch.Tensor | None, a: torch.Tensor | None
+             ) -> torch.Tensor | None:
+    """The running auxiliary loss plus a block's (None is 0, as the
+    reference's zeros: 0 + a is a, so the sums are the reference's)."""
+    if a is None:
+        return aux
+    return a if aux is None else aux + a
+
+
 def lm_forward(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                positions: torch.Tensor, caches: dict | None = None
-               ) -> tuple[torch.Tensor, dict | None]:
-    """x: (B, L, d) embedded inputs -> (hidden, caches).  ``caches`` (decode)
-    are updated in place and returned; prefill passes None."""
+               ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """x: (B, L, d) embedded inputs -> (hidden, caches, aux_loss).
+    ``caches`` (decode) are updated in place and returned; prefill passes
+    None.  ``aux_loss`` is the blocks' auxiliary losses summed in the
+    reference's order (an fp32 0 where no block has one)."""
     compute_dtype = getattr(torch, cfg.compute_dtype)
     xbar = XbarMode.from_config(cfg)
     lay = stack_layout(cfg)
 
-    def run(kind, p, x, c):
-        return block_apply(cfg, kind, p, x, positions=positions, cache=c,
-                           xbar=xbar, compute_dtype=compute_dtype)[0]
+    def run(kind, p, x, c, aux):
+        x, _, a = block_apply(cfg, kind, p, x, positions=positions, cache=c,
+                              xbar=xbar, compute_dtype=compute_dtype)
+        return x, _add_aux(aux, a)
 
+    aux = None
     for i, kind in enumerate(lay.prefix):
-        x = run(kind, params["prefix"][i], x,
-                caches["prefix"][i] if caches else None)
+        x, aux = run(kind, params["prefix"][i], x,
+                     caches["prefix"][i] if caches else None, aux)
 
-    def period(x, p_params, p_cache):
+    def period(x, aux, p_params, p_cache):
         # cast as the reference's scan body, inside what remat recomputes
         p_params = cast_for_compute(p_params, compute_dtype)
         for i, kind in enumerate(lay.pattern):
             key = f"b{i}_{kind}"
-            x = run(kind, p_params[key], x,
-                    p_cache[key] if p_cache is not None else None)
-        return x
+            x, aux = run(kind, p_params[key], x,
+                         p_cache[key] if p_cache is not None else None, aux)
+        return x, aux
 
     body = _remat_wrap(cfg, period)
     stack = _unstack(params["stack"]) if lay.periods else []
     for p, p_params in enumerate(stack):
         p_cache = (tree_map(lambda a: a[p], caches["stack"])
                    if caches is not None else None)
-        x = body(x, p_params, p_cache)
+        x, aux = body(x, aux, p_params, p_cache)
     for i, kind in enumerate(lay.suffix):
-        x = run(kind, params["suffix"][i], x,
-                caches["suffix"][i] if caches else None)
+        x, aux = run(kind, params["suffix"][i], x,
+                     caches["suffix"][i] if caches else None, aux)
 
     x = _norm_fns(cfg)[1](params["final_norm"], x)
-    return x, caches
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux
 
 
 def lm_logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor

@@ -7,8 +7,9 @@
   init(gen)      concrete parameters, drawn from a ``torch.Generator`` on
                  the model's device
   abstract_params()  the same tree as ``meta`` tensors (nothing allocated)
-  loss_fn        (params, batch) -> (loss, metrics), under autograd (the
-                 training step differentiates it)
+  loss_fn        (params, batch) -> (ce + aux, {"ce", "aux"}), under
+                 autograd (the training step differentiates it); aux is
+                 the MoE blocks' load-balancing loss, 0 without them
   prefill_fn     (params, batch) -> logits
   decode_fn      (params, cache, batch) -> (logits, cache); the cache is
                  updated in place (the reference donates it)
@@ -80,19 +81,18 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
         B, L = batch["tokens"].shape
         x = lm_mod.embed_inputs(cfg, params, batch, compute_dtype)
         positions = _positions_for(cfg, B, L, device=x.device)
-        h, _ = lm_mod.lm_forward(cfg, params, x, positions=positions)
-        return lm_mod.lm_logits(cfg, params, h)
+        h, _, aux = lm_mod.lm_forward(cfg, params, x, positions=positions)
+        return lm_mod.lm_logits(cfg, params, h), aux
 
     def loss_fn(params, batch):
-        logits = forward_logits(params, batch)
+        logits, aux = forward_logits(params, batch)
         loss = cross_entropy(logits, batch["labels"])
-        # the dense family's auxiliary loss is 0 (MoE's is not ported)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
     def prefill_fn(params, batch):
-        return forward_logits(params, batch)
+        logits, _ = forward_logits(params, batch)
+        return logits
 
     @torch.no_grad()
     def decode_fn(params, cache, batch):
@@ -101,8 +101,8 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
         x = lm_mod.embed_inputs(cfg, params, {"tokens": tok}, compute_dtype)
         positions = _positions_for(cfg, B, 1, start=batch["length"],
                                    device=x.device)
-        h, cache = lm_mod.lm_forward(cfg, params, x, positions=positions,
-                                     caches=cache)
+        h, cache, _ = lm_mod.lm_forward(cfg, params, x,
+                                        positions=positions, caches=cache)
         return lm_mod.lm_logits(cfg, params, h), cache
 
     def init_cache(batch: int, max_len: int,

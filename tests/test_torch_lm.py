@@ -102,7 +102,9 @@ def test_configs_and_param_count_equal_the_reference(arch):
 
 
 def test_registry_lists_only_what_the_port_builds():
-    assert sorted(tcfg.list_archs()) == sorted(DENSE + ["recurrentgemma-9b"])
+    assert sorted(tcfg.list_archs()) == sorted(
+        DENSE + ["recurrentgemma-9b", "moonshot-v1-16b-a3b",
+                 "qwen3-moe-30b-a3b"])
     assert tcfg.SHAPES == jcfg.SHAPES
     cfg = tcfg.get_config("qwen2-0.5b")
     assert tcfg.shape_applicable(cfg, "long_500k")[0] is False
@@ -112,11 +114,19 @@ def test_registry_lists_only_what_the_port_builds():
 
 def test_unported_kinds_and_families_raise():
     cfg = tcfg.get_reduced_config(ARCH)
-    # local (windowed) blocks are ported (tests/test_torch_hybrid.py)
+    # local (windowed) blocks are ported (tests/test_torch_hybrid.py), and
+    # so are moe blocks (tests/test_torch_moe.py)
     tbuild(cfg.replace(block_pattern=("attn", "local"), window=8), "cpu")
-    for bad in (cfg.replace(block_pattern=("attn", "moe")),
-                cfg.replace(block_pattern=("moe",)),
-                cfg.replace(block_pattern=("ssd",)),
+    moe = cfg.replace(block_pattern=("attn", "moe"), n_experts=4, top_k=2,
+                      d_expert=32)
+    tm = tbuild(moe, "cpu")
+    tp = tm.init(torch.Generator().manual_seed(0))
+    assert set(tp["stack"]["b1_moe"]) == {"ln1", "attn", "ln2", "moe"}
+    zeros = torch.zeros(1, 8, dtype=torch.int32)
+    _, metrics = tm.loss_fn(tp, {"tokens": zeros, "labels": zeros})
+    assert float(metrics["aux"].detach()) > 0
+    for bad in (cfg.replace(block_pattern=("ssd",)),
+                cfg.replace(block_pattern=("attn", "ssd")),
                 cfg.replace(vlm_patches=4)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             tbuild(bad, "cpu")
