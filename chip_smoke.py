@@ -313,24 +313,55 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     in standard and crossbar kernel mode (the loss, its aux term, every
     gradient leaf; the crossbar and fp32 flash launches counted).  No
     full-width training: adamw's moments would double the parameters;
-21. prints the wave and training-step times (CUDA events), compiled beside
+21. the SSM family at mamba2-130m's full width and full depth (24 ssd
+    layers, d 768, 24 heads of 64, N 128, chunk 256, 129,100,224 fp32
+    parameters from ``init`` at seed 0, after step 20's memory is freed),
+    attention-free: (a) ``prefill_fn`` on 4 x 2048 tokens in bf16 (8
+    chunks a layer), the flash and crossbar counts at 0 before and read
+    after (all 0); logits finite, pad columns -1e30; the peak memory, the
+    time of one call (CUDA events), tokens/s and a profile with the idle
+    share and the cuBLAS products beside the rest (the scan's elementwise
+    passes); then one 1 x 32768 prefill (128 chunks a layer, the
+    reference's prefill_32k length): its time, tokens/s and peak memory;
+    (b) ``BatchedServer(batch=4)`` serving the CLI's 8-token prompts with
+    ``max_new=16`` (23 steps), its decode logits held against
+    ``prefill_fn`` on the same tokens: in float32 compute within 1e-3; in
+    bf16 the logits' relative distance within twice the reference's own
+    reduced-config bf16-vs-float32 distance (SSM_BF16_DIST, a fixed
+    figure from the CPU); tokens the prefill argmax but at near-ties
+    (counted); no kernel launch; ms per step and a profiled bf16 step;
+    (c) full-width training, ``make_train_step`` at 4 x 2048 tokens, bf16,
+    remat "full": 3 adamw steps (losses finite, no kernel launch), then
+    crossbar kernel mode (``crossbar=True, xbar_use_kernel=True``) with
+    pulse_sgd, 2 steps, the counts at 0 before and read after (a step: 96
+    ``crossbar_fwd``, 2 a layer twice under remat, 48 ``crossbar_bwd`` and
+    48 ``crossbar_dw``), layer 0's ``in_proj`` and ``out_proj`` launches
+    of the first step held against their plain versions within 1e-5 of
+    sum_k |x_k||w_k| and re-timed on their operands (kernel, plain,
+    ``torch.bmm``, the bound), conductances in [0, 4]; each run's step
+    ms, tokens/s, peak memory and idle share; (d) the reduced config on
+    the card against the CPU: a float32 prefill of 2 x 64 tokens (2
+    chunks of 32) and 8 decode steps, each output within 1e-4 of its
+    largest |value|, and step 18 (c)'s ``make_train_step`` check in
+    standard and kernel mode, the crossbar launches counted;
+22. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18,
-    19 and 20 run, which come last of the paths, so that their large
-    allocations and long profiles disturb nothing else —, one
-    ``{"kernels": [...]}`` line with eight entries (the fp32 flash kernel
-    as ``flash_attention_simt``; the crossbar kernels' ``launches``
-    include steps 12-18 and 20, broken down in
-    ``launches_faults_and_farm``, ``launches_pipeline``,
-    ``launches_lm_train`` and ``launches_moe``, the flash kernels' steps
-    18-20 in ``launches_lm_train``, ``launches_hybrid`` and
-    ``launches_moe``, with the local layer's
-    and hd 256's timings and the backward's yardsticks beside;
-    ``crossbar_dw`` carries ``farm_step_local_dw``), and last ``{"ok":
-    true, "device": {...}}``.
+    by the counts its capture recorded) — all taken before steps 18-21
+    run, which come last of the paths, so that their large allocations
+    and long profiles disturb nothing else —, one ``{"kernels": [...]}``
+    line with eight entries (the fp32 flash kernel as
+    ``flash_attention_simt``; the crossbar kernels' ``launches`` include
+    steps 12-18, 20 and 21, broken down in ``launches_faults_and_farm``,
+    ``launches_pipeline``, ``launches_lm_train``, ``launches_moe`` and
+    ``launches_ssm``, with mamba2's projection shapes in ``ssm_shapes``;
+    the flash kernels' steps 18-21 in ``launches_lm_train``,
+    ``launches_hybrid``, ``launches_moe`` and ``launches_ssm`` (0), with
+    the local layer's and hd 256's timings and the backward's yardsticks
+    beside; ``crossbar_dw`` carries ``farm_step_local_dw``), and last
+    ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
 repo's kernel bar; the two sides sum in different orders).  Quantized
@@ -2898,6 +2929,22 @@ def check_flash_counts(ops, n: int, route: str, what: str) -> None:
                              f"{routes}; expected {want}")
 
 
+def check_prefill_logits(logits, cfg, B: int, L: int) -> tuple:
+    """Raise unless ``logits`` are (B, L, padded vocab) fp32, finite over
+    the vocabulary and -1e30 in the pad columns; returns that shape."""
+    want_shape = (B, L, cfg.padded_vocab)
+    if logits.shape != want_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"{cfg.name} prefill logits "
+                             f"{tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {want_shape}")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"{cfg.name} prefill logits not finite")
+    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
+        raise AssertionError(f"{cfg.name} prefill pad columns are not "
+                             f"-1e30")
+    return want_shape
+
+
 def lm_prefill_path(ops, model, params, route: str,
                     profile: bool = True) -> dict:
     """qwen2-0.5b ``prefill_fn`` at full width on 4 x 2048 tokens drawn
@@ -2917,14 +2964,8 @@ def lm_prefill_path(ops, model, params, route: str,
     launches = ops.flash_attention.launches
     routes = dict(fak_routes())
     check_flash_counts(ops, cfg.n_layers, route, f"prefill ({route})")
-    want_shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
-    if logits.shape != want_shape or logits.dtype != torch.float32:
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                             f"{logits.dtype}, expected {want_shape}")
-    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-        raise AssertionError("prefill logits not finite")
-    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
-        raise AssertionError("prefill pad columns are not -1e30")
+    want_shape = check_prefill_logits(logits, cfg, PREFILL_BATCH,
+                                      PREFILL_LEN)
     del logits
     ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=3,
                  warmup=1)
@@ -3844,9 +3885,17 @@ def pipeline_farm_path(ops, csim, fabric, build_chip, hw, gen) -> dict:
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 3
 XB_BATCH, XB_LEN, XB_STEPS = 4, 1024, 2
 XB_PROJECTIONS = 7       # wq, wk, wv, wo, wi, wg, wo of the MLP, per layer
+XB_NAMES = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")
 XB_BAR = 1e-5            # kernel vs plain, relative to sum_k |x_k| |w_k|
 CPU_STEP_BAR = 1e-4      # card vs CPU gradients, of each leaf's largest
 QUANT_NEAR = 1e-4        # a quantizer input this close to a code boundary
+
+
+def zero_lm_counts(ops) -> None:
+    """The flash and crossbar counts at 0."""
+    zero_flash_counts(ops)
+    for n in XB_NAMES:
+        getattr(ops, n).launches = 0
 
 
 def launch_train_config(cfg, optimizer: str, steps: int):
@@ -4079,7 +4128,7 @@ def check_layer0_launches(xbk, rec) -> dict:
     return worst
 
 
-def lm_crossbar_rows(xbk, rec) -> list[dict]:
+def lm_crossbar_rows(xbk, rec, app: str = "qwen2-0.5b") -> list[dict]:
     """Kernel / plain / ``torch.bmm`` times (and device times) of the
     recorded layer-0 launches at each distinct LM shape, beside the
     bound."""
@@ -4088,7 +4137,7 @@ def lm_crossbar_rows(xbk, rec) -> list[dict]:
         key = ("crossbar_fwd",) + tuple(xs.shape) + (gp.shape[2],)
         if key not in seen:
             seen.add(key)
-            rows.append(time_shape(xbk, "qwen2-0.5b", xs, gp, gm))
+            rows.append(time_shape(xbk, app, xs, gp, gm))
     for (dys, gp, gm), kw, _ in rec.bwd:
         key = ("crossbar_bwd",) + tuple(dys.shape) + (gp.shape[1],)
         if key not in seen:
@@ -4100,6 +4149,16 @@ def lm_crossbar_rows(xbk, rec) -> list[dict]:
             seen.add(key)
             rows.append(time_dw_codes(xbk, xs, dys, kw["dy_scale"]))
     return rows
+
+
+def print_crossbar_rows(rows: list[dict]) -> None:
+    for r in rows:
+        print(f"  {r['kernel']} (M, K, N) = ({r['M']}, {r['K']}, {r['N']})"
+              f"{' int8 codes' if r.get('codes') else ''}: {r['ms']:.4f} ms "
+              f"(device {r['ms_device']:.4f}), plain {r['plain_ms']:.4f}, "
+              f"torch.bmm {r['library_ms']:.4f} (device "
+              f"{r['library_ms_device']:.4f}), bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
 
 
 def lm_train_crossbar(ops, xbk) -> dict:
@@ -4124,10 +4183,7 @@ def lm_train_crossbar(ops, xbk) -> dict:
     step = make_train_step(model, opt)
     stream = TokenStream(cfg.vocab_size, XB_LEN, XB_BATCH, seed=SEED)
     per_pass = XB_PROJECTIONS * cfg.n_layers
-    names = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")
-    for n in names:
-        getattr(ops, n).launches = 0
-    zero_flash_counts(ops)
+    zero_lm_counts(ops)
     metrics, ranges = [], []
     for s in range(XB_STEPS):
         batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
@@ -4145,7 +4201,7 @@ def lm_train_crossbar(ops, xbk) -> dict:
         if lo < 0.0 or hi > cfg.xbar_w_max:
             raise AssertionError(f"crossbar step {s}: conductances in "
                                  f"[{lo}, {hi}], outside [0, 4]")
-    launches = {n: getattr(ops, n).launches for n in names}
+    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
     want = {"crossbar_fwd": 2 * per_pass * XB_STEPS,
             "crossbar_bwd": per_pass * XB_STEPS,
             "crossbar_dw": per_pass * XB_STEPS}
@@ -4192,13 +4248,7 @@ def lm_train_crossbar(ops, xbk) -> dict:
           f"share {ms3(prof['device_idle_share'])} [{card_line()}]")
     print("profile of the crossbar-mode step (profiler on): "
           + json.dumps(prof))
-    for r in rows:
-        print(f"  {r['kernel']} (M, K, N) = ({r['M']}, {r['K']}, {r['N']})"
-              f"{' int8 codes' if r.get('codes') else ''}: {r['ms']:.4f} ms "
-              f"(device {r['ms_device']:.4f}), plain {r['plain_ms']:.4f}, "
-              f"torch.bmm {r['library_ms']:.4f} (device "
-              f"{r['library_ms_device']:.4f}), bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})")
+    print_crossbar_rows(rows)
     return out
 
 
@@ -4254,7 +4304,7 @@ def xbar_projections(params) -> tuple[int, int]:
 
 
 def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
-    """Step 18 (c) and 20 (d): one reduced ``make_train_step`` step of
+    """Step 18 (c), 20 (d) and 21 (d): one reduced ``make_train_step`` step of
     ``arch`` (sgd 0.1, float32 compute) on the card against the same step
     on the CPU, from the same parameters and batch, in standard and
     kernel mode, the counts at 0 before and read after.  The loss, its
@@ -4275,10 +4325,7 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
     from repro_torch.optim import Optimizer, sgd
     from repro_torch.runtime import make_train_step
     out = {}
-    names = ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")
-    for n in names:
-        getattr(ops, n).launches = 0
-    zero_flash_counts(ops)
+    zero_lm_counts(ops)
     for mode, kw in (("standard", {}),
                      ("kernel", dict(crossbar=True, xbar_use_kernel=True))):
         cfg = get_reduced_config(arch, compute_dtype="float32", **kw)
@@ -4340,11 +4387,14 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
                      "strict": strict,
                      "quantizer inputs near a boundary or routing "
                      "near-ties (card)": near}
-    launches = {n: getattr(ops, n).launches for n in names}
+    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
     lay = stack_layout(get_reduced_config(arch))
+
+    def attention(kinds):       # the blocks that launch the flash kernel
+        return sum(k not in ("rec", "ssd") for k in kinds)
     # a step: the forward, and the periods' layers again under remat
-    flash = (len(lay.prefix) + len(lay.suffix)
-             + 2 * lay.periods * len(lay.pattern))
+    flash = (attention(lay.prefix) + attention(lay.suffix)
+             + 2 * lay.periods * attention(lay.pattern))
     want = {"crossbar_fwd": outside + 2 * inside,     # remat: periods twice
             "crossbar_bwd": outside + inside, "crossbar_dw": outside + inside}
     if launches != want:
@@ -4404,14 +4454,8 @@ def hybrid_prefill(ops, model, params) -> dict:
     torch.cuda.synchronize()
     launches = ops.flash_attention.launches
     check_windowed_counts(ops, n_local, "wgmma", f"{HYBRID_ARCH} prefill")
-    want_shape = (HYBRID_BATCH, HYBRID_LEN, cfg.padded_vocab)
-    if logits.shape != want_shape or logits.dtype != torch.float32:
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                             f"{logits.dtype}, expected {want_shape}")
-    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-        raise AssertionError(f"{HYBRID_ARCH} prefill logits not finite")
-    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
-        raise AssertionError("prefill pad columns are not -1e30")
+    want_shape = check_prefill_logits(logits, cfg, HYBRID_BATCH,
+                                      HYBRID_LEN)
     peak = torch.cuda.max_memory_allocated()
     del logits
     ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=1, warmup=0)
@@ -4739,14 +4783,8 @@ def moe_prefill(ops, model, params) -> dict:
     n_moe = cfg.layer_kinds().count("moe")
     if len(routing) != n_moe:
         raise AssertionError(f"{len(routing)} moe calls, expected {n_moe}")
-    want_shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
-    if logits.shape != want_shape or logits.dtype != torch.float32:
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                             f"{logits.dtype}, expected {want_shape}")
-    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-        raise AssertionError(f"{cfg.name} prefill logits not finite")
-    if not bool((logits[..., cfg.vocab_size:] == -1e30).all()):
-        raise AssertionError("prefill pad columns are not -1e30")
+    want_shape = check_prefill_logits(logits, cfg, PREFILL_BATCH,
+                                      PREFILL_LEN)
     dropped = [round(v, 5) for v in torch.stack(
         [1 - r.kept.float().mean() for r in routing]).tolist()]
     peak = torch.cuda.max_memory_allocated()
@@ -5044,6 +5082,339 @@ def moe_path(ops) -> dict:
         res["reduced training"] = lm_train_card_vs_cpu(ops, arch)
         res["s"] = time.perf_counter() - t0
         out[arch] = res
+    return out
+
+
+# -- the SSM family (mamba2-130m at full width and full depth) ---------------
+
+SSM_ARCH = "mamba2-130m"
+SSM_LONG = 32768                # the reference's prefill_32k length
+SSM_TRAIN_STEPS, SSM_XB_STEPS = 3, 2
+SSM_PROJECTIONS = 2             # in_proj and out_proj, per layer
+# bf16 decode against bf16 prefill, relative Frobenius distance of the
+# logits: d, the reference's own bf16-vs-float32 distance on its reduced
+# config, the largest over 8 batches of 4 x 24 tokens from numpy seeds 0-7
+# (0.0107-0.0116), measured on the CPU; tests/test_torch_ssd.py computes
+# it again and holds this figure to it.  Decode and prefill are two bf16
+# computations of one function, each as near the float32 result as the
+# reference's bf16 lies within d of it, so the two lie within 2 d
+SSM_BF16_DIST = 0.01157
+# the cuBLAS products' kernels, by name, in a profile
+GEMM_KERNELS = r"gemm|gemv|nvjet|xmma|cutlass"
+
+
+def check_no_launches(ops, what: str) -> None:
+    """Raise unless no flash or crossbar kernel launched since the counts
+    were set to 0 (an attention-free model in standard mode)."""
+    check_flash_counts(ops, 0, "wgmma", what)
+    got = {n: getattr(ops, n).launches for n in XB_NAMES}
+    if any(got.values()):
+        raise AssertionError(f"{what} launched {got}")
+
+
+def ssm_prefill_call(ops, model, params, B: int, L: int) -> dict:
+    """One ``prefill_fn`` on B x L tokens from SEED, the counts at 0 before
+    and read after (none: mamba2 is attention-free); logits finite, pad
+    columns -1e30; its peak memory and the time of one more call (CUDA
+    events)."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, L),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ops)
+    logits = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    check_no_launches(ops, f"{SSM_ARCH} prefill {B} x {L}")
+    check_prefill_logits(logits, cfg, B, L)
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=1, warmup=0)
+    return {"batch": batch, "peak GB": peak / 1e9, "ms": ms,
+            "tokens/s": B * L / ms * 1e3}
+
+
+def ssm_prefill(ops, model, params) -> dict:
+    """Step 21 (a): ``prefill_fn`` on PREFILL_BATCH x PREFILL_LEN tokens in
+    bf16 (8 chunks of 256 a layer) with a profile (the cuBLAS products
+    beside the rest: the scan's elementwise passes), then one prefill of
+    1 x SSM_LONG tokens (128 chunks a layer)."""
+    run = ssm_prefill_call(ops, model, params, PREFILL_BATCH, PREFILL_LEN)
+    batch = run.pop("batch")
+    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1,
+                          match=GEMM_KERNELS)
+    del batch
+    long = ssm_prefill_call(ops, model, params, 1, SSM_LONG)
+    del long["batch"]
+    gemm = prof["matched_ms"]
+    out = {"flash and crossbar launches": 0, "peak GB": run["peak GB"],
+           "prefill ms": run["ms"], "prefill tokens/s": run["tokens/s"],
+           "cuBLAS products ms (profiler)": gemm,
+           "the rest ms (profiler)": (None if gemm is None
+                                      else prof["device_busy_ms"] - gemm),
+           "profile": prof,
+           f"1 x {SSM_LONG}": long}
+    print(f"ssm prefill ({SSM_ARCH} full width and depth, "
+          f"{model.cfg.param_count():,} parameters, bf16 compute, "
+          f"{PREFILL_BATCH} x {PREFILL_LEN} tokens, chunk "
+          f"{model.cfg.ssm_chunk}): no flash or crossbar launch, logits "
+          f"finite, pad columns -1e30; peak {run['peak GB']:.2f} GB; "
+          f"{run['ms']:.3f} ms, {run['tokens/s']:.0f} tokens/s; profile "
+          f"span {prof['span_ms']:.3f} ms, busy "
+          f"{ms3(prof['device_busy_ms'])} ms (cuBLAS products {ms3(gemm)} "
+          f"ms), idle share {ms3(prof['device_idle_share'])}; 1 x "
+          f"{SSM_LONG}: {long['ms']:.3f} ms, {long['tokens/s']:.0f} "
+          f"tokens/s, peak {long['peak GB']:.2f} GB")
+    print("ssm prefill profile (profiler on): " + json.dumps(prof))
+    return out
+
+
+def ssm_decode(ops, model, model32, params, BatchedServer) -> dict:
+    """Step 21 (b): ``hybrid_serve`` (the CLI's prompts, ``max_new=16``,
+    23 steps) in float32 compute, its decode within LOGIT_BAR float32 of
+    its prefill; then in bf16, the logits' relative Frobenius distance
+    within 2 x SSM_BF16_DIST, and every generated token the prefill
+    argmax but where its top-2 gap is within twice the position's largest
+    |decode - prefill| (a near-tie, counted); no crossbar launch; ms per
+    step and a profiled bf16 step."""
+    out = {}
+    for n in XB_NAMES:
+        getattr(ops, n).launches = 0
+    run32 = hybrid_serve(ops, model32, params, BatchedServer)
+    out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
+                                  f"{SSM_ARCH} float32")
+    del run32
+    run = hybrid_serve(ops, model, params, BatchedServer)
+    check_no_launches(ops, f"{SSM_ARCH} serving")
+    dec, pre = run["dec"], run["pre"]
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{SSM_ARCH} bf16: decode logits not finite")
+    rel = float(torch.linalg.norm(dec - pre) / torch.linalg.norm(pre))
+    if not rel <= 2 * SSM_BF16_DIST:
+        raise AssertionError(f"{SSM_ARCH} bf16: decode vs prefill relative "
+                             f"distance {rel} > 2 x {SSM_BF16_DIST}")
+    top2 = torch.topk(pre[:, 7:], 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    near = 2 * (dec - pre)[:, 7:].abs().amax(-1)
+    off = torch.tensor(run["outs"], device="cuda") != pre[:, 7:].argmax(-1)
+    if bool((off & (gap > near)).any()):
+        raise AssertionError(f"{SSM_ARCH} bf16: a generated token is not "
+                             f"the prefill argmax away from a near-tie")
+    server, seqs, steps = run["server"], run["seqs"], run["steps"]
+    step_batch = {"tokens": seqs[:, -1:], "length": steps}
+    prof = profile_device(lambda: model.decode_fn(params, server.cache,
+                                                  step_batch))
+    out["bfloat16"] = {
+        "relative distance ||decode - prefill|| / ||prefill||": rel,
+        "bar": 2 * SSM_BF16_DIST,
+        "max |decode - prefill| logit": float((dec - pre).abs().max()),
+        "max |logit|": float(pre.abs().max()),
+        "tokens excused as near-ties": int(off.sum()),
+        "steps": steps, "tokens_out": run["tokens"],
+        "decode ms per step": run["ms"] / steps,
+        "decode tokens/s": run["tokens"] / run["ms"] * 1e3,
+        "flash_attention launches in BatchedServer.generate":
+            run["launches"],
+        "decode step profile": prof}
+    r32, r = out["float32"], out["bfloat16"]
+    print(f"ssm decode vs prefill ({SSM_ARCH}): float32 {r32['steps']} "
+          f"steps, max |decode - prefill| "
+          f"{r32['max |decode - prefill| logit']:.3e} (bar {r32['bar']}), "
+          f"{r32['tokens excused as near-ties']} tokens at near-ties, "
+          f"{r32['decode ms per step']:.3f} ms per step; bf16 relative "
+          f"distance {rel:.3e} (bar {2 * SSM_BF16_DIST}), max |Δ| "
+          f"{r['max |decode - prefill| logit']:.3e} of max |logit| "
+          f"{r['max |logit|']:.3f}, {r['tokens excused as near-ties']} "
+          f"tokens at near-ties, {r['decode ms per step']:.3f} ms per step, "
+          f"{r['decode tokens/s']:.1f} tokens/s; one bf16 step under the "
+          f"profiler: {prof['span_ms']:.3f} ms span, busy "
+          f"{ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])}")
+    return out
+
+
+def ssm_train_run(ops, cfg, optimizer: str, steps: int, xbk=None) -> dict:
+    """``make_train_step`` for ``cfg`` on cuda at PREFILL_BATCH x
+    PREFILL_LEN tokens (``TokenStream`` from SEED), ``steps`` steps of
+    ``optimizer`` on the launcher's schedule, the counts at 0 before and
+    read after, each loss and grad norm finite; with ``xbk``, layer 0's
+    crossbar launches of the first step recorded.  Then the step's time
+    (CUDA events, 2 more steps), peak memory and a profile."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.runtime import make_train_step
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = launch_train_config(cfg, optimizer, steps)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    stream = TokenStream(cfg.vocab_size, PREFILL_LEN, PREFILL_BATCH,
+                         seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ops)
+    metrics, rec = [], None
+    for s in range(steps):
+        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
+        if s == 0 and xbk is not None:
+            with Layer0Recorder(xbk, SSM_PROJECTIONS) as rec:
+                params, opt_state, m = step(params, opt_state, batch, s)
+        else:
+            params, opt_state, m = step(params, opt_state, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not (math.isfinite(metrics[-1]["loss"])
+                and math.isfinite(metrics[-1]["grad_norm"])):
+            raise AssertionError(f"{cfg.name} step {s}: {metrics[-1]}")
+    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
+    flash = ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
+    ms = cuda_ms(lambda: step(params, opt_state, batch, 0), iters=2,
+                 warmup=0)
+    prof = profile_device(lambda: step(params, opt_state, batch, 0), reps=1,
+                          match=r"crossbar_(fwd|bwd|dw)")
+    return {"params": params, "rec": rec, "launches": launches,
+            "flash": flash, "losses": [m["loss"] for m in metrics],
+            "grad norms": [m["grad_norm"] for m in metrics],
+            "peak GB": peak / 1e9, "step ms": ms,
+            "tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
+            "profile": prof}
+
+
+def ssm_train(ops, xbk) -> dict:
+    """Step 21 (c): the full config trains, bf16 compute, remat "full":
+    SSM_TRAIN_STEPS adamw steps (no kernel launch), then crossbar kernel
+    mode with pulse_sgd, SSM_XB_STEPS steps (a step: 2 projections x 24
+    layers x 2 (remat) ``crossbar_fwd``, 48 ``crossbar_bwd`` and 48
+    ``crossbar_dw``), layer 0's launches of its first step held against
+    their plain versions within XB_BAR of sum_k |x_k||w_k| and re-timed
+    on their operands (kernel, plain, ``torch.bmm``, the bound);
+    conductances in [0, 4]."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.checkpoint import _walk
+    cfg = get_config(SSM_ARCH)
+    std = ssm_train_run(ops, cfg, "adamw", SSM_TRAIN_STEPS)
+    del std["params"], std["rec"]
+    if std["flash"] or any(std["launches"].values()):
+        raise AssertionError(f"standard training launched "
+                             f"{std['launches']}, {std['flash']} flash")
+    xcfg = get_config(SSM_ARCH, crossbar=True, xbar_use_kernel=True)
+    xb = ssm_train_run(ops, xcfg, "pulse_sgd", SSM_XB_STEPS, xbk)
+    per_pass = SSM_PROJECTIONS * xcfg.n_layers
+    want = {"crossbar_fwd": 2 * per_pass * SSM_XB_STEPS,
+            "crossbar_bwd": per_pass * SSM_XB_STEPS,
+            "crossbar_dw": per_pass * SSM_XB_STEPS}
+    if xb["launches"] != want or xb["flash"]:
+        raise AssertionError(f"crossbar kernel mode ran {xb['launches']} "
+                             f"and {xb['flash']} flash, expected {want}")
+    g = [t for path, t in _walk(xb.pop("params"))
+         if any(k in ("g_plus", "g_minus") for k in path)]
+    lo, hi = min(float(t.min()) for t in g), max(float(t.max()) for t in g)
+    if lo < 0.0 or hi > xcfg.xbar_w_max:
+        raise AssertionError(f"conductances in [{lo}, {hi}], outside "
+                             f"[0, {xcfg.xbar_w_max}]")
+    rec = xb.pop("rec")
+    xb["layer-0 launches vs plain, max |err| / sum |x||w|"] = \
+        check_layer0_launches(xbk, rec)
+    xb["rows"] = lm_crossbar_rows(xbk, rec, SSM_ARCH)
+    del rec
+    prof = xb["profile"]
+    xb["conductance range"] = [lo, hi]
+    xb["crossbar kernels' share of device time"] = (
+        None if prof["device_busy_ms"] is None
+        else prof["matched_ms"] / prof["device_busy_ms"])
+    for what, r in (("standard, adamw", std),
+                    ("crossbar kernel mode, pulse_sgd", xb)):
+        print(f"ssm training ({SSM_ARCH} full width and depth, bf16 "
+              f"compute, remat full, {PREFILL_BATCH} x {PREFILL_LEN} "
+              f"tokens, {what}): launches {json.dumps(r['launches'])}, "
+              f"{r['flash']} flash; losses "
+              f"{[round(v, 4) for v in r['losses']]}; step "
+              f"{r['step ms']:.3f} ms, {r['tokens/s']:.0f} tokens/s, peak "
+              f"{r['peak GB']:.2f} GB; profile busy "
+              f"{ms3(r['profile']['device_busy_ms'])} ms of "
+              f"{r['profile']['span_ms']:.3f}, idle share "
+              f"{ms3(r['profile']['device_idle_share'])} [{card_line()}]")
+    print(f"  layer 0's launches vs plain (max |err| / sum |x||w|, bar "
+          f"{XB_BAR}): " + json.dumps(
+              xb["layer-0 launches vs plain, max |err| / sum |x||w|"])
+          + f"; conductances in [{lo}, {hi}]; crossbar kernels "
+          f"{ms3(prof['matched_ms'])} ms of the busy time")
+    print_crossbar_rows(xb["rows"])
+    print("ssm training profiles (profiler on): " + json.dumps(
+        {"standard": std["profile"], "crossbar": prof}))
+    return {"standard": std, "crossbar": xb}
+
+
+def ssm_reduced(ops) -> dict:
+    """Step 21 (d), serving: the reduced config in float32 compute,
+    ``prefill_fn`` on 2 x 64 tokens (2 chunks of 32) and 8 decode steps,
+    on the card and on the CPU from the same parameters, each output
+    within CARD_VS_CPU_BAR of its largest |value|; no kernel launch."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist.sharding import tree_map
+    from repro_torch.models import build_model
+    cfg = get_reduced_config(SSM_ARCH, compute_dtype="float32")
+    p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(SEED),
+                           dtype=torch.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), p0)
+        tok = tokens.to(dev)
+        zero_lm_counts(ops)
+        pre = model.prefill_fn(params, {"tokens": tok})
+        cache, dec = model.init_cache(2, 16), []
+        for step in range(8):
+            logits, cache = model.decode_fn(
+                params, cache, {"tokens": tok[:, step:step + 1],
+                                "length": step})
+            dec.append(logits)
+        if dev == "cuda":
+            check_no_launches(ops, f"reduced {SSM_ARCH} serving")
+        runs[dev] = (pre.cpu(), torch.cat(dec, dim=1).cpu(),
+                     cache["stack"]["b0_ssd"]["state"].cpu())
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(runs["cuda"], runs["cpu"]))
+    if not rel <= CARD_VS_CPU_BAR:
+        raise AssertionError(f"reduced {SSM_ARCH} float32: card vs CPU "
+                             f"{rel}")
+    out = {"card vs cpu, of each output's largest (prefill, decode, "
+           "state)": rel}
+    print(f"ssm reduced serving ({SSM_ARCH} reduced, float32, 2 x 64 "
+          f"prefill and 8 decode steps, card vs CPU): " + json.dumps(out))
+    return out
+
+
+def ssm_path(ops, xbk) -> dict:
+    """The SSM family (module docstring, step 21)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import BatchedServer
+    t0 = time.perf_counter()
+    model = build_model(get_config(SSM_ARCH), "cuda")
+    model32 = build_model(get_config(SSM_ARCH, compute_dtype="float32"),
+                          "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out = {"init s": time.perf_counter() - t0,
+           "parameters": model.cfg.param_count()}
+    out["prefill"] = ssm_prefill(ops, model, params)
+    out["decode"] = ssm_decode(ops, model, model32, params, BatchedServer)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = ssm_train(ops, xbk)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced serving"] = ssm_reduced(ops)
+    out["reduced training"] = lm_train_card_vs_cpu(ops, SSM_ARCH)
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -5431,6 +5802,23 @@ def main() -> int:
                 for part, out in res.items()}
          for arch, res in moe_res.items()}))
 
+    # -- the SSM family (step 21): step 20's memory freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the ssm path: {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated")
+    ssm = ssm_path(ops, xbk)
+    phase_s["ssm path"] = time.perf_counter() - t0
+    print(f"ssm path [{card}], {phase_s['ssm path']:.1f} s: " + json.dumps(
+        {part: ({k: (v if not isinstance(v, dict) else
+                     {kk: vv for kk, vv in v.items()
+                      if "profile" not in kk and kk != "rows"})
+                 for k, v in out.items()
+                 if "profile" not in k and k != "rows"}
+                if isinstance(out, dict) else out)
+         for part, out in ssm.items()}))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -5493,14 +5881,23 @@ def main() -> int:
                lm_train["crossbar"]["launches"][name],
                "card vs CPU (reduced)":
                lm_train["card vs cpu"]["launches"][name]}
-        for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")}
+        for name in XB_NAMES}
     # the MoE path's: the reduced kernel-mode training steps (step 20 (d))
     moe_counted = {
         name: {f"{arch} reduced, card vs CPU": res["reduced training"][
             "launches"][name] for arch, res in moe_res.items()}
-        for name in ("crossbar_fwd", "crossbar_bwd", "crossbar_dw")}
+        for name in XB_NAMES}
+    # the SSM path's: the full-width kernel-mode steps (step 21 (c)) and
+    # the reduced kernel-mode step held against the CPU (step 21 (d))
+    ssm_counted = {
+        name: {f"{SSM_ARCH} crossbar kernel mode (full width)":
+               ssm["train"]["crossbar"]["launches"][name],
+               f"{SSM_ARCH} reduced, card vs CPU":
+               ssm["reduced training"]["launches"][name]}
+        for name in XB_NAMES}
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
-                        *lm_counted.items(), *moe_counted.items()):
+                        *lm_counted.items(), *moe_counted.items(),
+                        *ssm_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -5569,6 +5966,18 @@ def main() -> int:
         entries[-1]["launches_pipeline"] = pipe_counted[name]
         if name in moe_counted:
             entries[-1]["launches_moe"] = moe_counted[name]
+        if name in ssm_counted:
+            entries[-1]["launches_ssm"] = ssm_counted[name]
+            entries[-1]["ssm_train_layer0_rel_err"] = ssm["train"][
+                "crossbar"]["layer-0 launches vs plain, max |err| / sum "
+                "|x||w|"][name]
+            entries[-1]["ssm_shapes"] = [
+                {k: r[k] for k in ("M", "K", "N", "ms", "ms_device",
+                                   "plain_ms", "library_ms",
+                                   "library_ms_device", "bound_ms",
+                                   "bound_by", "tile")}
+                for r in ssm["train"]["crossbar"]["rows"]
+                if r["kernel"] == name]
         if name in lm_counted:
             entries[-1]["launches_lm_train"] = lm_counted[name]
             entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]
@@ -5691,6 +6100,8 @@ def main() -> int:
             "launches_lm_train": lm_flash[name],
             "launches_hybrid": hybrid_flash[name],
             "launches_moe": moe_flash[name],
+            "launches_ssm": {f"{SSM_ARCH} prefill, decode and training "
+                             f"(attention-free)": 0},
             "hybrid_local_layer": {k: local[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},

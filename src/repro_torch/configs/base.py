@@ -5,11 +5,12 @@
 copies over unchanged and compares field for field.  The registry lists
 only the architectures the port can build: the four dense (``attn``-only)
 configs, the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
-``local`` windowed attention) and the MoE family (moonshot-v1-16b-a3b
-and qwen3-moe-30b-a3b: ``moe`` blocks after an optional dense prefix).
-The SSM, encoder-decoder and VLM configs wait for their layers (ROADMAP
-Queue 1 item 10), and so does ``ssd()``.  ``reduced()`` of each config
-module yields the CPU test variant (same topology, tiny widths).
+``local`` windowed attention), the MoE family (moonshot-v1-16b-a3b and
+qwen3-moe-30b-a3b: ``moe`` blocks after an optional dense prefix) and
+the SSM mamba2-130m (``ssd`` blocks, attention-free).  The
+encoder-decoder and VLM configs wait for their layers (ROADMAP Queue 1
+item 10).  ``reduced()`` of each config module yields the CPU test
+variant (same topology, tiny widths).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any
 from repro_torch.layers.attention import AttnConfig
 from repro_torch.layers.moe import MoeConfig
 from repro_torch.layers.rglru import RGLRUConfig
+from repro_torch.layers.ssd import SSDConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +127,13 @@ class ModelConfig:
             capacity_factor=self.capacity_factor,
             group_size=self.moe_group_size, act=self.mlp_act)
 
+    def ssd(self) -> SSDConfig:
+        return SSDConfig(
+            d_model=self.d_model, d_state=self.ssm_state,
+            head_dim=self.ssm_head_dim, expand=self.ssm_expand,
+            n_groups=self.ssm_groups, d_conv=self.ssm_conv,
+            chunk=self.ssm_chunk)
+
     def rglru(self) -> RGLRUConfig:
         return RGLRUConfig(d_model=self.d_model,
                            d_rnn=self.d_rnn or self.d_model)
@@ -170,6 +179,7 @@ ARCH_MODULES = {
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 

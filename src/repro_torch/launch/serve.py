@@ -5,9 +5,11 @@
       --reduced --batch 4 --max-new 32 [--device cpu]
 
 ``--arch`` takes any architecture of ``configs.list_archs()``: the dense
-configs, recurrentgemma-9b and the MoE family (moonshot-v1-16b-a3b,
+configs, recurrentgemma-9b, the MoE family (moonshot-v1-16b-a3b,
 qwen3-moe-30b-a3b; a decode step routes each slot's token among the
-experts, in groups of the batch's tokens, so it drops none).
+experts, in groups of the batch's tokens, so it drops none) and
+mamba2-130m (a decode step is the SSD recurrence on a fixed (H, P, N)
+state, whatever the length).
 
 Parameters are restored from the latest step of ``--ckpt-dir`` (a
 checkpoint of ``launch.train``, the port's or the reference's), or else

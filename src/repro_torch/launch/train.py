@@ -6,7 +6,8 @@
 
 ``--arch`` takes any architecture of ``configs.list_archs()``; an MoE
 config's loss is the cross-entropy plus its load-balancing term (the
-logged ``aux``).  Runs on ``--device cuda`` unless given ``--device cpu``; without a card
+logged ``aux``); mamba2-130m trains its SSD blocks through the chunked
+scan, each chunk rematerialized.  Runs on ``--device cuda`` unless given ``--device cpu``; without a card
 the CUDA default raises.  TF32 stays off, so float32 compute means full
 fp32 products.  ``--mesh`` other than ``none`` raises: meshed training
 waits for the port's ``dist/`` (ROADMAP Queue 1 step 5.4).

@@ -1,6 +1,6 @@
 """Decoder-only LM assembly: pattern-cycled blocks over stacked periods
-(port of ``repro/models/lm.py``, the ``attn``, ``local``, ``rec`` and
-``moe`` block kinds).
+(port of ``repro/models/lm.py``, the ``attn``, ``local``, ``rec``,
+``moe`` and ``ssd`` block kinds).
 
 The layer stack is grouped into *periods* (one cycle of
 ``cfg.block_pattern``), stacked on a leading axis as in the reference.
@@ -12,9 +12,9 @@ the reference's scan body does.  Layers that do not fill a whole period
 run unscanned and uncast: the MoE configs' dense prefix
 (``first_dense_layers``) before the periods, RecurrentGemma's trailing
 (rec, rec) after them, as the reference's prefix and suffix do.  Decode
-caches are stacked the same way (a rec block's conv window and state
-beside the attention blocks' k/v buffers) and updated in place through
-views.
+caches are stacked the same way (a rec or ssd block's conv window and
+state beside the attention blocks' k/v buffers) and updated in place
+through views.
 
 Every block returns its auxiliary loss (a ``moe`` block's load-balancing
 term; None for the others, whose term the reference adds as 0), and
@@ -37,9 +37,12 @@ Block kinds:
   local  windowed self-attention + MLP          (recurrentgemma)
   rec    RG-LRU recurrent block + MLP           (recurrentgemma)
   moe    pre-norm self-attention + MoE FFN      (moe archs)
+  ssd    Mamba-2 block (single residual)        (mamba2)
 
-``ssd`` blocks and VLM patches raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 10).
+In bf16 compute an ssd block's parameters reach ``ssd_apply`` rounded to
+bf16 by the period's cast (``a_log``, ``dt_bias`` and ``conv_w``
+included), and it widens them, as the reference's.  VLM patches raise
+``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ from repro_torch.layers import embedding as emb_mod
 from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import rglru as rglru_mod
+from repro_torch.layers import ssd as ssd_mod
 from repro_torch.layers.linear import XbarMode
 from repro_torch.layers.norms import (layernorm_apply, layernorm_spec,
                                       rmsnorm_apply, rmsnorm_spec)
@@ -70,7 +74,7 @@ def _norm_fns(cfg: ModelConfig):
     return rmsnorm_spec, rmsnorm_apply
 
 
-KINDS = ("attn", "local", "rec", "moe")
+KINDS = ("attn", "local", "rec", "moe", "ssd")
 
 
 def _check_kind(kind: str) -> None:
@@ -90,6 +94,8 @@ def block_spec(cfg: ModelConfig, kind: str, xbar: XbarMode | None) -> dict:
     _check_kind(kind)
     nspec, _ = _norm_fns(cfg)
     d = cfg.d_model
+    if kind == "ssd":
+        return {"ln": nspec(d), "ssd": ssd_mod.ssd_spec(cfg.ssd(), xbar)}
     if kind == "rec":
         mix = {"mix": rglru_mod.rglru_spec(cfg.rglru(), xbar)}
     else:
@@ -111,6 +117,11 @@ def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
     the block has none (the reference's zeros)."""
     _check_kind(kind)
     _, napply = _norm_fns(cfg)
+    if kind == "ssd":
+        h, cache = ssd_mod.ssd_apply(params["ssd"], napply(params["ln"], x),
+                                     cfg.ssd(), cache=cache, xbar=xbar,
+                                     compute_dtype=compute_dtype)
+        return x + h, cache, None
     if kind == "rec":
         h, cache = rglru_mod.rglru_apply(
             params["mix"], napply(params["ln1"], x), cfg.rglru(),
@@ -135,11 +146,13 @@ def block_apply(cfg: ModelConfig, kind: str, params: dict, x: torch.Tensor,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device) -> dict:
-    """A block's decode cache: a rec block's conv window and state (fp32,
-    whatever ``dtype``, as the reference's), else the attention cache of
-    ``dtype`` (a moe block's self-attention too), rolling for a local
-    block."""
+    """A block's decode cache: a rec or ssd block's conv window and state
+    (fp32, whatever ``dtype``, as the reference's), else the attention
+    cache of ``dtype`` (a moe block's self-attention too), rolling for a
+    local block."""
     _check_kind(kind)
+    if kind == "ssd":
+        return ssd_mod.init_ssd_cache(cfg.ssd(), batch, device=device)
     if kind == "rec":
         return rglru_mod.init_rglru_cache(cfg.rglru(), batch, device=device)
     return attn_mod.init_self_cache(cfg.attn(_window(cfg, kind)), batch,

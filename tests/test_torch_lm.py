@@ -104,7 +104,7 @@ def test_configs_and_param_count_equal_the_reference(arch):
 def test_registry_lists_only_what_the_port_builds():
     assert sorted(tcfg.list_archs()) == sorted(
         DENSE + ["recurrentgemma-9b", "moonshot-v1-16b-a3b",
-                 "qwen3-moe-30b-a3b"])
+                 "qwen3-moe-30b-a3b", "mamba2-130m"])
     assert tcfg.SHAPES == jcfg.SHAPES
     cfg = tcfg.get_config("qwen2-0.5b")
     assert tcfg.shape_applicable(cfg, "long_500k")[0] is False
@@ -115,8 +115,18 @@ def test_registry_lists_only_what_the_port_builds():
 def test_unported_kinds_and_families_raise():
     cfg = tcfg.get_reduced_config(ARCH)
     # local (windowed) blocks are ported (tests/test_torch_hybrid.py), and
-    # so are moe blocks (tests/test_torch_moe.py)
+    # so are moe blocks (tests/test_torch_moe.py) and ssd blocks
+    # (tests/test_torch_ssd.py), alone or after an attention block
     tbuild(cfg.replace(block_pattern=("attn", "local"), window=8), "cpu")
+    for pattern in (("ssd",), ("attn", "ssd")):
+        sm = tbuild(cfg.replace(block_pattern=pattern, ssm_state=16,
+                                ssm_head_dim=16, ssm_chunk=8), "cpu")
+        sp = sm.init(torch.Generator().manual_seed(0))
+        key = f"b{len(pattern) - 1}_ssd"
+        assert set(sp["stack"][key]) == {"ln", "ssd"}
+        zeros = torch.zeros(1, 8, dtype=torch.int32)
+        loss, metrics = sm.loss_fn(sp, {"tokens": zeros, "labels": zeros})
+        assert bool(torch.isfinite(loss)) and float(metrics["aux"]) == 0
     moe = cfg.replace(block_pattern=("attn", "moe"), n_experts=4, top_k=2,
                       d_expert=32)
     tm = tbuild(moe, "cpu")
@@ -125,11 +135,8 @@ def test_unported_kinds_and_families_raise():
     zeros = torch.zeros(1, 8, dtype=torch.int32)
     _, metrics = tm.loss_fn(tp, {"tokens": zeros, "labels": zeros})
     assert float(metrics["aux"].detach()) > 0
-    for bad in (cfg.replace(block_pattern=("ssd",)),
-                cfg.replace(block_pattern=("attn", "ssd")),
-                cfg.replace(vlm_patches=4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tbuild(bad, "cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tbuild(cfg.replace(vlm_patches=4), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tbuild(cfg.replace(family="encdec"), "cpu")
 
