@@ -92,7 +92,12 @@ Imports nothing of JAX or of the JAX package.  In order, it:
    beside the plain version, SDPA with a boolean band mask (kv heads
    expanded) and the bound over the band's pairs; and a window of S or
    10^6 bit for bit the causal kernel; the hd-256 instances' registers,
-   spills and shared memory;
+   spills and shared memory; then the flash cross phase, both sources
+   non-causal (``ENCDEC_FLASH_CASES``): seamless-m4t-medium's
+   bidirectional and cross-attention shape (B=4, 2048 queries on 2048
+   keys, 16 heads on 16, hd 64), 512 queries on 1500 keys and 1500 on
+   1000 (8 heads on 2), ragged key tiles, each in both functions under
+   the same bars, timed beside the plain version, SDPA and the bound;
 4. eager recognition path (``compiled=False``): ``build_chip`` for
    mnist_class at full width (784-300-200-100-10, 13 cores) runs
    ``infer_stream`` on 16 samples and on a 4096-sample wave, isolet_class
@@ -344,23 +349,64 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     chunks of 32) and 8 decode steps, each output within 1e-4 of its
     largest |value|, and step 18 (c)'s ``make_train_step`` check in
     standard and kernel mode, the crossbar launches counted;
-22. prints the wave and training-step times (CUDA events), compiled beside
+22. the encoder-decoder family at seamless-m4t-medium's full width and
+    full depth (12 encoder and 12 decoder layers, d 1024, 16 heads of
+    64, relu MLP of 4096, layernorm, 878,309,376 fp32 parameters from
+    ``init`` at seed 0, after step 21's memory is freed): (a)
+    ``prefill_fn`` on 4 x 2048 target tokens over 2048 source frames
+    (uniform, seeded) in bf16, the counts at 0 before and read after: 36
+    flash launches, all wgmma/chunked, their (causal, Sq, Skv) in the
+    order ``encdec_flash_calls`` gives (12 bidirectional, then 12 causal
+    and 12 cross interleaved; recorded by ``FlashRecorder``, which adds
+    no count), no crossbar launch; logits finite, pad columns -1e30; the
+    peak memory, the time of one more call (CUDA events), tokens/s and a
+    profile with the idle share and the flash kernels' share; (b)
+    ``BatchedServer(batch=4)`` with its cross cache filled by ``encode``
+    and ``fill_cross_cache`` from the same frames, serving the CLI's
+    8-token prompts with ``max_new=16`` (23 steps, no flash launch), its
+    decode logits held against ``prefill_fn`` on the same frames and
+    tokens: in float32 compute with float32 self and cross caches within
+    1e-3; in bf16 the logits' relative distance within twice
+    ENCDEC_BF16_DIST (the reference's reduced-config bf16-vs-float32
+    distance, a fixed figure from the CPU); tokens the prefill argmax
+    but at near-ties (counted); ms per step and a profiled bf16 step;
+    (c) training, ``make_train_step`` at 4 x 2048 (frames and tokens),
+    bf16, remat "full": 3 adamw steps (losses finite, 72 flash launches
+    a step: the forward's 36 and their recomputation), then crossbar
+    kernel mode with pulse_sgd, 2 steps (a step: 192 projections a
+    forward, 6 an encoder layer and 10 a decoder layer, twice under
+    remat: 384 ``crossbar_fwd``, 192 ``crossbar_bwd`` and 192
+    ``crossbar_dw``), encoder layer 0's 6 launches of the first step
+    held against their plain versions within 1e-5 of sum_k |x_k||w_k|
+    and re-timed on their operands (kernel, plain, ``torch.bmm``, the
+    bound), conductances in [0, 4]; each run's step ms, tokens/s, peak
+    memory and idle share; (d) the reduced config on the card against
+    the CPU: a float32 prefill of 2 x 64 target tokens on 96 frames (6
+    simt launches, the cross-attention at Sq != Skv) and 8 decode steps
+    over float32 caches, each output within 1e-4 of its largest |value|,
+    and step 18 (c)'s ``make_train_step`` check in standard and kernel
+    mode (a kernel-mode miss held within twice the CPU's own spread,
+    ``cpu_spread``);
+23. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18-21
+    by the counts its capture recorded) — all taken before steps 18-22
     run, which come last of the paths, so that their large allocations
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
     ``flash_attention_simt``; the crossbar kernels' ``launches`` include
-    steps 12-18, 20 and 21, broken down in ``launches_faults_and_farm``,
-    ``launches_pipeline``, ``launches_lm_train``, ``launches_moe`` and
-    ``launches_ssm``, with mamba2's projection shapes in ``ssm_shapes``;
-    the flash kernels' steps 18-21 in ``launches_lm_train``,
-    ``launches_hybrid``, ``launches_moe`` and ``launches_ssm`` (0), with
-    the local layer's and hd 256's timings and the backward's yardsticks
-    beside; ``crossbar_dw`` carries ``farm_step_local_dw``), and last
+    steps 12-18 and 20-22, broken down in ``launches_faults_and_farm``,
+    ``launches_pipeline``, ``launches_lm_train``, ``launches_moe``,
+    ``launches_ssm`` and ``launches_encdec``, with mamba2's and
+    seamless's projection shapes in ``ssm_shapes`` and
+    ``encdec_shapes``; the flash kernels' steps 18-22 in
+    ``launches_lm_train``, ``launches_hybrid``, ``launches_moe``,
+    ``launches_ssm`` (0) and ``launches_encdec``, with the local layer's,
+    hd 256's and seamless's non-causal timings, the cross phase's rows
+    and the backward's yardsticks beside; ``crossbar_dw`` carries
+    ``farm_step_local_dw``), and last
     ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
@@ -2634,6 +2680,102 @@ def device_ms(fn, name: str) -> tuple[float, str]:
     return found[0], "profiler"
 
 
+def flash_case(fak, gen, report, B, Sq, Skv, H, K, hd, causal, dt,
+               what) -> tuple[float, list[dict]]:
+    """One shape of a flash phase: q (B, Sq, H, hd), k and v (B, Skv, K,
+    hd) from ``gen``, each of the reference's two functions launched and
+    held against its plain version (``check_flash``; bf16 also
+    ``check_chunked_tile`` and ``check_functions``), timed (CUDA events,
+    and the device time by ``device_ms``) beside the plain version,
+    ``scaled_dot_product_attention`` on (B, H, S, hd) transposes made
+    outside the timed region, and the bound.  Returns (max |err|, one row
+    per function).  Launches here are not counted."""
+    import torch.nn.functional as F
+    dtype = getattr(torch, dt)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, K, hd), generator=gen, device="cuda"
+                    ).to(dtype)
+    v = torch.randn((B, Skv, K, hd), generator=gen, device="cuda"
+                    ).to(dtype)
+    scale = hd ** -0.5
+    wam = (weighted_abs_mean(fak, q, k, v, scale, causal)
+           if dtype == torch.bfloat16 else None)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True),
+        iters=10)
+    name = "flash_tc_fwd" if dtype == torch.bfloat16 else "flash_fwd"
+    worst, rows, outs, plains = 0.0, [], {}, {}
+    for sem in ("chunked", "pallas"):
+        def run():
+            return fak.flash_attention_kernel(q, k, v, scale=scale,
+                                              causal=causal, semantics=sem)
+        got = outs[sem] = run()
+        want = plain_attention(fak, sem, q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != (B, Sq, H, hd):
+            raise AssertionError(f"flash_attention {what}: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        err = check_flash(got, want, dt, what, sem, wam)
+        worst = max(worst, err)
+        checks = {}
+        if dtype == torch.bfloat16 and sem == "chunked":
+            over = ((got.float() - want.float()).abs()
+                    - bf16_step(torch.maximum(got.float().abs(),
+                                              want.float().abs())))
+            checks["excess over one step / wam, 512-key plain"] = float(
+                (over / wam).max())
+            tile_err, plains["chunked"] = check_chunked_tile(
+                fak, got, q, k, v, scale, causal, what)
+            checks["max_abs_err, 64-key plain"] = tile_err
+            worst = max(worst, tile_err)
+        elif dtype == torch.bfloat16:
+            plains["pallas"] = want
+        op_ms, byte_ms, exp_ms = flash_bound(B, Sq, Skv, H, K, hd, causal,
+                                             dtype, sem)
+        dev_ms, dev_by = device_ms(run, name)
+        rows.append({
+            "kernel": "flash_attention", "B": B, "S": Sq, "Skv": Skv,
+            "H": H, "K": K, "hd": hd, "causal": causal, "dtype": dt,
+            "case": what, "semantics": sem, "route": fak.route(dtype),
+            "max_abs_err": err,
+            "ms": cuda_ms(run, iters=10),
+            "device_ms": dev_ms, "device_ms_by": dev_by,
+            "plain_ms": cuda_ms(lambda: plain_attention(
+                fak, sem, q, k, v, scale, causal), iters=5),
+            "library_ms": library_ms,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "exp_bound_ms": exp_ms,
+            **checks,
+            **flash_instance(report, dtype, hd, sem)})
+        del got, want
+    if dtype == torch.bfloat16:
+        means = check_functions(outs, plains, what)
+        for r in rows:
+            r["mean |err| by function"] = means
+    return worst, rows
+
+
+def print_flash_rows(rows: list[dict]) -> None:
+    for r in rows:
+        print(f"  {r['case']:<28} {r['semantics']:<8} {r['route']:<6} "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} by "
+              f"{r['device_ms_by']}), bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), exp co-bound "
+              f"{r['exp_bound_ms']:.4f}, plain {r['plain_ms']:.3f}, SDPA "
+              f"{r['library_ms']:.4f}; {r['registers']} registers, "
+              f"{r['spill_stores']}/{r['spill_loads']} B spilled, "
+              f"{r['dynamic_smem']} B dynamic shared memory")
+        if "max_abs_err, 64-key plain" in r:
+            print(f"    chunked: max |err| against 64-key tiles "
+                  f"{r['max_abs_err, 64-key plain']:.3e}; largest excess "
+                  f"over one step against 512-key chunks "
+                  f"{r['excess over one step / wam, 512-key plain']:.3e} "
+                  f"of sum p|v|/l (bar 2^-8); mean |err| by function "
+                  + json.dumps(r["mean |err| by function"]))
+
+
 def flash_kernel_phase(fak, ops, gen, report) -> tuple[float, list[dict]]:
     """The flash kernels against their plain versions at FLASH_CASES, each
     row in both of the reference's functions (and, on strided views,
@@ -2643,75 +2785,12 @@ def flash_kernel_phase(fak, ops, gen, report) -> tuple[float, list[dict]]:
     made outside the timed region, and the bound; bf16 rows also go
     through ``check_chunked_tile`` and ``check_functions``.  Returns (max
     |err|, rows).  Launches here are not counted."""
-    import torch.nn.functional as F
     worst, rows = 0.0, []
     for B, S, H, K, hd, causal, dt, what in FLASH_CASES:
-        dtype = getattr(torch, dt)
-        q = torch.randn((B, S, H, hd), generator=gen, device="cuda"
-                        ).to(dtype)
-        k = torch.randn((B, S, K, hd), generator=gen, device="cuda"
-                        ).to(dtype)
-        v = torch.randn((B, S, K, hd), generator=gen, device="cuda"
-                        ).to(dtype)
-        scale = hd ** -0.5
-        wam = (weighted_abs_mean(fak, q, k, v, scale, causal)
-               if dtype == torch.bfloat16 else None)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True),
-            iters=10)
-        name = "flash_tc_fwd" if dtype == torch.bfloat16 else "flash_fwd"
-        outs, plains = {}, {}
-        for sem in ("chunked", "pallas"):
-            def run():
-                return fak.flash_attention_kernel(q, k, v, scale=scale,
-                                                  causal=causal,
-                                                  semantics=sem)
-            got = outs[sem] = run()
-            want = plain_attention(fak, sem, q, k, v, scale, causal)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != (B, S, H, hd):
-                raise AssertionError(f"flash_attention {what}: {got.dtype} "
-                                     f"{tuple(got.shape)}")
-            err = check_flash(got, want, dt, what, sem, wam)
-            worst = max(worst, err)
-            checks = {}
-            if dtype == torch.bfloat16 and sem == "chunked":
-                over = ((got.float() - want.float()).abs()
-                        - bf16_step(torch.maximum(got.float().abs(),
-                                                  want.float().abs())))
-                checks["excess over one step / wam, 512-key plain"] = float(
-                    (over / wam).max())
-                tile_err, plains["chunked"] = check_chunked_tile(
-                    fak, got, q, k, v, scale, causal, what)
-                checks["max_abs_err, 64-key plain"] = tile_err
-                worst = max(worst, tile_err)
-            elif dtype == torch.bfloat16:
-                plains["pallas"] = want
-            op_ms, byte_ms, exp_ms = flash_bound(B, S, S, H, K, hd, causal,
-                                                 dtype, sem)
-            dev_ms, dev_by = device_ms(run, name)
-            rows.append({
-                "kernel": "flash_attention", "B": B, "S": S, "H": H,
-                "K": K, "hd": hd, "causal": causal, "dtype": dt,
-                "case": what, "semantics": sem, "route": fak.route(dtype),
-                "max_abs_err": err,
-                "ms": cuda_ms(run, iters=10),
-                "device_ms": dev_ms, "device_ms_by": dev_by,
-                "plain_ms": cuda_ms(lambda: plain_attention(
-                    fak, sem, q, k, v, scale, causal), iters=5),
-                "library_ms": library_ms,
-                "bound_ms": max(op_ms, byte_ms),
-                "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                "exp_bound_ms": exp_ms,
-                **checks,
-                **flash_instance(report, dtype, hd, sem)})
-            del got, want
-        if dtype == torch.bfloat16:
-            means = check_functions(outs, plains, what)
-            for r in rows[-2:]:
-                r["mean |err| by function"] = means
-        del q, k, v, qt, kt, vt, wam, outs, plains
+        err, case_rows = flash_case(fak, gen, report, B, S, S, H, K, hd,
+                                    causal, dt, what)
+        worst = max(worst, err)
+        rows += case_rows
     # strided operands through the model's wrapper: q, k, v as (B, S,
     # heads, hd) views of (B, heads, S, hd) buffers.  fp32 goes to its
     # kernel as it is, read through the strides; bf16 views with 16-byte
@@ -2755,22 +2834,42 @@ def flash_kernel_phase(fak, ops, gen, report) -> tuple[float, list[dict]]:
           f"one step + 2^-7 max p|v|/l; each bf16 function at most a "
           f"quarter as far from its own plain version on average as from "
           f"the other's); max |err| {worst:.3e}")
-    for r in rows:
-        print(f"  {r['case']:<28} {r['semantics']:<8} {r['route']:<6} "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} by "
-              f"{r['device_ms_by']}), bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}), exp co-bound "
-              f"{r['exp_bound_ms']:.4f}, plain {r['plain_ms']:.3f}, SDPA "
-              f"{r['library_ms']:.4f}; {r['registers']} registers, "
-              f"{r['spill_stores']}/{r['spill_loads']} B spilled, "
-              f"{r['dynamic_smem']} B dynamic shared memory")
-        if "max_abs_err, 64-key plain" in r:
-            print(f"    chunked: max |err| against 64-key tiles "
-                  f"{r['max_abs_err, 64-key plain']:.3e}; largest excess "
-                  f"over one step against 512-key chunks "
-                  f"{r['excess over one step / wam, 512-key plain']:.3e} "
-                  f"of sum p|v|/l (bar 2^-8); mean |err| by function "
-                  + json.dumps(r["mean |err| by function"]))
+    print_flash_rows(rows)
+    return worst, rows
+
+
+# (B, Sq, Skv, H, K, hd, dtype, what) of the non-causal flash phase: the
+# seamless encoder's bidirectional self-attention and its decoder's
+# cross-attention at their prefill shape (4 x 2048 on 2048 source frames,
+# 16 heads on 16, hd 64), and query and key lengths apart, with a ragged
+# Skv (not a multiple of the 64-key tile) and GQA, in both sources
+ENCDEC_FLASH_CASES = [
+    (4, 2048, 2048, 16, 16, 64, "bfloat16", "seamless enc / cross"),
+    (4, 2048, 2048, 16, 16, 64, "float32", "seamless enc / cross, fp32"),
+    (2, 512, 1500, 8, 8, 64, "bfloat16", "Sq < Skv = 1500"),
+    (2, 512, 1500, 8, 8, 64, "float32", "Sq < Skv = 1500, fp32"),
+    (2, 1500, 1000, 8, 2, 64, "bfloat16", "Sq > Skv = 1000, GQA"),
+    (2, 1500, 1000, 8, 2, 64, "float32", "Sq > Skv = 1000, GQA, fp32"),
+]
+
+
+def flash_cross_phase(fak, gen, report) -> tuple[float, list[dict]]:
+    """Both flash sources non-causal at ENCDEC_FLASH_CASES (``flash_case``
+    at Sq and Skv apart, the rows' ``Skv``): the seamless shape beside
+    SDPA and the bound, Sq < Skv and Sq > Skv with ragged key tiles, each
+    in both functions under the flash phase's bars.  Returns (max |err|,
+    rows).  Launches here are not counted."""
+    worst, rows = 0.0, []
+    for B, Sq, Skv, H, K, hd, dt, what in ENCDEC_FLASH_CASES:
+        err, case_rows = flash_case(fak, gen, report, B, Sq, Skv, H, K, hd,
+                                    False, dt, what)
+        worst = max(worst, err)
+        rows += case_rows
+    print(f"flash cross phase: {len(ENCDEC_FLASH_CASES)} non-causal shapes "
+          f"(Sq = Skv at seamless's prefill, Sq < Skv and Sq > Skv with "
+          f"ragged key tiles) x 2 functions within the flash phase's bars; "
+          f"max |err| {worst:.3e}")
+    print_flash_rows(rows)
     return worst, rows
 
 
@@ -4284,8 +4383,9 @@ def count_near_boundaries(tq) -> tuple[dict, callable]:
 def xbar_projections(params) -> tuple[int, int]:
     """The crossbar products one forward launches, as (outside the
     periods, inside them): the paired (g_plus, g_minus) projections, a
-    stacked one once per period; the head's product is plain and is not
-    counted.  Remat recomputes only the periods' in the backward."""
+    stacked one once per period (or per encoder and decoder layer); the
+    head's product and ``src_proj``'s are plain and are not counted.
+    Remat recomputes only the stacked layers' in the backward."""
     from repro_torch.dist.sharding import tree_leaves
 
     def walk(tree, mult):
@@ -4296,17 +4396,21 @@ def xbar_projections(params) -> tuple[int, int]:
         if isinstance(tree, (tuple, list)):
             return sum(walk(v, mult) for v in tree)
         return 0
+    # the stacked layers: the LM's periods, an encoder-decoder's stacks
+    stacked = [k for k in ("stack", "encoder", "decoder") if k in params]
     outside = sum(walk(v, 1) for k, v in params.items()
-                  if k not in ("stack", "lm_head"))
-    inside = (walk(params["stack"], tree_leaves(params["stack"])[0].shape[0])
-              if "stack" in params else 0)
+                  if k not in stacked + ["lm_head"])
+    inside = sum(walk(params[k], tree_leaves(params[k])[0].shape[0])
+                 for k in stacked)
     return outside, inside
 
 
 def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
-    """Step 18 (c), 20 (d) and 21 (d): one reduced ``make_train_step`` step of
-    ``arch`` (sgd 0.1, float32 compute) on the card against the same step
-    on the CPU, from the same parameters and batch, in standard and
+    """Step 18 (c), 20 (d), 21 (d) and 22 (d): one reduced
+    ``make_train_step`` step of ``arch`` (sgd 0.1, float32 compute; an
+    encoder-decoder's batch carries 96 source frames) on the card against
+    the same step on the CPU, from the same parameters and batch, in
+    standard and
     kernel mode, the counts at 0 before and read after.  The loss, its
     aux term and the grad norm within 1e-5 relative, each gradient leaf
     within CPU_STEP_BAR of its largest magnitude, each new parameter
@@ -4314,7 +4418,11 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
     card's quantizers (kernel mode) saw an input within QUANT_NEAR of a
     code boundary or its MoE routers a near-tie (margin below
     MOE_NEAR_TIE), counted: then the loss within 1e-4 and each leaf
-    within 10 % in the norm."""
+    within 10 % in the norm.  An encoder-decoder's kernel mode is chaotic
+    at this size (its reduced attention projections' gradients move ~9 %
+    in the norm when the CPU step starts from parameters perturbed in the
+    last bit): a miss there is held within twice the CPU's own spread
+    (``cpu_spread``) where that exceeds those bars."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core import quantization as tq
     from repro_torch.data import TokenStream
@@ -4325,6 +4433,7 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
     from repro_torch.optim import Optimizer, sgd
     from repro_torch.runtime import make_train_step
     out = {}
+    outside = inside = 0
     zero_lm_counts(ops)
     for mode, kw in (("standard", {}),
                      ("kernel", dict(crossbar=True, xbar_use_kernel=True))):
@@ -4332,12 +4441,19 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
         p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(
             SEED))
         batch = TokenStream(cfg.vocab_size, 64, 4, seed=SEED).batch_at(0)
-        runs = {}
-        for dev in ("cuda", "cpu"):
+        if cfg.family == "encdec":
+            batch = {"src_frames": encdec_batch(
+                cfg, 4, 96, 1, torch.Generator().manual_seed(SEED),
+                device="cpu")["src_frames"],
+                "tgt_tokens": batch["tokens"], "labels": batch["labels"]}
+
+        def step_on(dev, p0=p0, cfg=cfg, batch=batch, mode=mode):
+            """One sgd step on ``dev`` from ``p0``: (metrics, gradients,
+            new parameters, near-boundary inputs or near-ties)."""
+            nonlocal outside, inside
             base, seen_g = sgd(0.1), []
 
-            def update(grads, state, params, step=0, base=base,
-                       seen_g=seen_g):
+            def update(grads, state, params, step=0):
                 seen_g.append([g.cpu() for g in tree_leaves(grads)])
                 return base.update(grads, state, params, step=step)
 
@@ -4356,9 +4472,11 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
             finally:
                 restore()
                 moe.ROUTING = None
-            runs[dev] = ({k: float(v) for k, v in m.items()}, seen_g[0],
-                         [t.cpu() for t in tree_leaves(params)],
-                         seen["n"] + ties)
+            return ({k: float(v) for k, v in m.items()}, seen_g[0],
+                    [t.cpu() for t in tree_leaves(params)],
+                    seen["n"] + ties)
+
+        runs = {dev: step_on(dev) for dev in ("cuda", "cpu")}
         (mc, gc, pc, near), (mp, gp, pp, _) = runs["cuda"], runs["cpu"]
         err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
             1e-30)) for a, b in zip(gc, gp))
@@ -4367,34 +4485,53 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
                    for a, b, g in zip(pc, pp, gp))
         loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
         gn_rel = abs(mc["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
-        aux_rel = abs(mc["aux"] - mp["aux"]) / max(abs(mp["aux"]), 1e-30)
+        aux_c, aux_p = mc.get("aux", 0.0), mp.get("aux", 0.0)  # encdec: none
+        aux_rel = abs(aux_c - aux_p) / max(abs(aux_p), 1e-30)
         strict = (err <= CPU_STEP_BAR and perr <= CPU_STEP_BAR
                   and loss_rel <= 1e-5 and gn_rel <= 1e-5
                   and aux_rel <= 1e-5)
+        spread = None
         if not strict:
-            nrel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(
-                b).clamp_min(1e-30)) for a, b in zip(gc, gp))
-            if near == 0 or loss_rel > 1e-4 or nrel > 0.1:
+            nrel = [float(torch.linalg.norm(a - b) / torch.linalg.norm(
+                b).clamp_min(1e-30)) for a, b in zip(gc, gp)]
+            loss_bar, leaf_bar = 1e-4, [0.1] * len(nrel)
+            if cfg.family == "encdec" and mode == "kernel":
+                spread = cpu_spread(step_on, p0, mp["loss"], gp)
+                loss_bar = max(loss_bar, 2 * spread["loss rel"])
+                leaf_bar = [max(0.1, 2 * x) for x in spread["leaf nrel"]]
+            if near == 0 or loss_rel > loss_bar or any(
+                    n > b for n, b in zip(nrel, leaf_bar)):
                 raise AssertionError(f"card vs CPU ({arch} {mode}): "
                                      f"gradient {err}, parameters {perr}, "
                                      f"loss {loss_rel}, aux {aux_rel}, "
                                      f"grad norm {gn_rel}, {near} "
-                                     f"near-boundary inputs or near-ties")
+                                     f"near-boundary inputs or near-ties; "
+                                     f"leaf nrel {max(nrel)}, spread "
+                                     f"{spread}")
         out[mode] = {"max |grad err| / max |grad|": err,
                      "new params, err over the bar's step part": perr,
                      "loss rel": loss_rel, "grad norm rel": gn_rel,
-                     "aux": mc["aux"], "aux rel": aux_rel,
+                     "aux": aux_c, "aux rel": aux_rel,
                      "strict": strict,
                      "quantizer inputs near a boundary or routing "
                      "near-ties (card)": near}
+        if spread is not None:
+            out[mode]["CPU spread (loss rel, max leaf nrel)"] = [
+                spread["loss rel"], max(spread["leaf nrel"])]
+            out[mode]["card vs CPU max leaf nrel"] = max(nrel)
     launches = {n: getattr(ops, n).launches for n in XB_NAMES}
-    lay = stack_layout(get_reduced_config(arch))
+    rcfg = get_reduced_config(arch)
 
     def attention(kinds):       # the blocks that launch the flash kernel
         return sum(k not in ("rec", "ssd") for k in kinds)
-    # a step: the forward, and the periods' layers again under remat
-    flash = (attention(lay.prefix) + attention(lay.suffix)
-             + 2 * lay.periods * attention(lay.pattern))
+    # a step: the forward, and the periods' (an encoder-decoder's every
+    # layer's) launches again under remat
+    if rcfg.family == "encdec":
+        flash = 2 * (rcfg.encoder_layers + 2 * rcfg.n_layers)
+    else:
+        lay = stack_layout(rcfg)
+        flash = (attention(lay.prefix) + attention(lay.suffix)
+                 + 2 * lay.periods * attention(lay.pattern))
     want = {"crossbar_fwd": outside + 2 * inside,     # remat: periods twice
             "crossbar_bwd": outside + inside, "crossbar_dw": outside + inside}
     if launches != want:
@@ -4408,6 +4545,29 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
           f"{CPU_STEP_BAR} of each leaf's largest gradient): "
           + json.dumps(out))
     return out
+
+
+SPREAD_SEEDS = 3          # perturbed CPU steps of ``cpu_spread``
+
+
+def cpu_spread(step_on, p0, loss, grads) -> dict:
+    """The CPU step's own spread: SPREAD_SEEDS steps from ``p0`` with each
+    parameter multiplied by 1 + u, u uniform in [-2^-23, 2^-23) (a
+    last-bit perturbation, what summation order leaves behind), against
+    the unperturbed step's ``loss`` and ``grads``: the largest relative
+    loss difference and, leaf by leaf, the largest relative distance in
+    the norm."""
+    from repro_torch.dist.sharding import tree_map
+    loss_rel, leaf = 0.0, [0.0] * len(grads)
+    for seed in range(SPREAD_SEEDS):
+        gen = torch.Generator().manual_seed(1000 + seed)
+        pp = tree_map(lambda t: t * (1 + (torch.rand(
+            t.shape, generator=gen) * 2 - 1) * 2.0 ** -23), p0)
+        m, g, _, _ = step_on("cpu", pp)
+        loss_rel = max(loss_rel, abs(m["loss"] - loss) / abs(loss))
+        leaf = [max(x, float(torch.linalg.norm(a - b) / torch.linalg.norm(
+            b).clamp_min(1e-30))) for x, a, b in zip(leaf, g, grads)]
+    return {"loss rel": loss_rel, "leaf nrel": leaf}
 
 
 def lm_train_path(ops, xbk, fak) -> dict:
@@ -5188,37 +5348,15 @@ def ssm_decode(ops, model, model32, params, BatchedServer) -> dict:
     del run32
     run = hybrid_serve(ops, model, params, BatchedServer)
     check_no_launches(ops, f"{SSM_ARCH} serving")
-    dec, pre = run["dec"], run["pre"]
-    if not bool(torch.isfinite(dec).all()):
-        raise AssertionError(f"{SSM_ARCH} bf16: decode logits not finite")
-    rel = float(torch.linalg.norm(dec - pre) / torch.linalg.norm(pre))
-    if not rel <= 2 * SSM_BF16_DIST:
-        raise AssertionError(f"{SSM_ARCH} bf16: decode vs prefill relative "
-                             f"distance {rel} > 2 x {SSM_BF16_DIST}")
-    top2 = torch.topk(pre[:, 7:], 2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
-    near = 2 * (dec - pre)[:, 7:].abs().amax(-1)
-    off = torch.tensor(run["outs"], device="cuda") != pre[:, 7:].argmax(-1)
-    if bool((off & (gap > near)).any()):
-        raise AssertionError(f"{SSM_ARCH} bf16: a generated token is not "
-                             f"the prefill argmax away from a near-tie")
+    out["bfloat16"] = check_decode_in_norm(run, SSM_BF16_DIST,
+                                           f"{SSM_ARCH} bf16")
     server, seqs, steps = run["server"], run["seqs"], run["steps"]
     step_batch = {"tokens": seqs[:, -1:], "length": steps}
     prof = profile_device(lambda: model.decode_fn(params, server.cache,
                                                   step_batch))
-    out["bfloat16"] = {
-        "relative distance ||decode - prefill|| / ||prefill||": rel,
-        "bar": 2 * SSM_BF16_DIST,
-        "max |decode - prefill| logit": float((dec - pre).abs().max()),
-        "max |logit|": float(pre.abs().max()),
-        "tokens excused as near-ties": int(off.sum()),
-        "steps": steps, "tokens_out": run["tokens"],
-        "decode ms per step": run["ms"] / steps,
-        "decode tokens/s": run["tokens"] / run["ms"] * 1e3,
-        "flash_attention launches in BatchedServer.generate":
-            run["launches"],
-        "decode step profile": prof}
+    out["bfloat16"]["decode step profile"] = prof
     r32, r = out["float32"], out["bfloat16"]
+    rel = r["relative distance ||decode - prefill|| / ||prefill||"]
     print(f"ssm decode vs prefill ({SSM_ARCH}): float32 {r32['steps']} "
           f"steps, max |decode - prefill| "
           f"{r32['max |decode - prefill| logit']:.3e} (bar {r32['bar']}), "
@@ -5235,54 +5373,6 @@ def ssm_decode(ops, model, model32, params, BatchedServer) -> dict:
     return out
 
 
-def ssm_train_run(ops, cfg, optimizer: str, steps: int, xbk=None) -> dict:
-    """``make_train_step`` for ``cfg`` on cuda at PREFILL_BATCH x
-    PREFILL_LEN tokens (``TokenStream`` from SEED), ``steps`` steps of
-    ``optimizer`` on the launcher's schedule, the counts at 0 before and
-    read after, each loss and grad norm finite; with ``xbk``, layer 0's
-    crossbar launches of the first step recorded.  Then the step's time
-    (CUDA events, 2 more steps), peak memory and a profile."""
-    from repro_torch.data import TokenStream
-    from repro_torch.models import build_model
-    from repro_torch.runtime import make_train_step
-    model = build_model(cfg, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-    opt = launch_train_config(cfg, optimizer, steps)
-    opt_state = opt.init(params)
-    step = make_train_step(model, opt)
-    stream = TokenStream(cfg.vocab_size, PREFILL_LEN, PREFILL_BATCH,
-                         seed=SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_lm_counts(ops)
-    metrics, rec = [], None
-    for s in range(steps):
-        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
-        if s == 0 and xbk is not None:
-            with Layer0Recorder(xbk, SSM_PROJECTIONS) as rec:
-                params, opt_state, m = step(params, opt_state, batch, s)
-        else:
-            params, opt_state, m = step(params, opt_state, batch, s)
-        metrics.append({k: float(v) for k, v in m.items()})
-        if not (math.isfinite(metrics[-1]["loss"])
-                and math.isfinite(metrics[-1]["grad_norm"])):
-            raise AssertionError(f"{cfg.name} step {s}: {metrics[-1]}")
-    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
-    flash = ops.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
-    batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
-    ms = cuda_ms(lambda: step(params, opt_state, batch, 0), iters=2,
-                 warmup=0)
-    prof = profile_device(lambda: step(params, opt_state, batch, 0), reps=1,
-                          match=r"crossbar_(fwd|bwd|dw)")
-    return {"params": params, "rec": rec, "launches": launches,
-            "flash": flash, "losses": [m["loss"] for m in metrics],
-            "grad norms": [m["grad_norm"] for m in metrics],
-            "peak GB": peak / 1e9, "step ms": ms,
-            "tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
-            "profile": prof}
-
-
 def ssm_train(ops, xbk) -> dict:
     """Step 21 (c): the full config trains, bf16 compute, remat "full":
     SSM_TRAIN_STEPS adamw steps (no kernel launch), then crossbar kernel
@@ -5293,22 +5383,30 @@ def ssm_train(ops, xbk) -> dict:
     on their operands (kernel, plain, ``torch.bmm``, the bound);
     conductances in [0, 4]."""
     from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
     from repro_torch.runtime.checkpoint import _walk
     cfg = get_config(SSM_ARCH)
-    std = ssm_train_run(ops, cfg, "adamw", SSM_TRAIN_STEPS)
+    stream = TokenStream(cfg.vocab_size, PREFILL_LEN, PREFILL_BATCH,
+                         seed=SEED)
+
+    def batches(steps):
+        return [{k: v.cuda() for k, v in stream.batch_at(s).items()}
+                for s in range(steps)]
+    std = train_run(ops, cfg, "adamw", batches(SSM_TRAIN_STEPS), 0)
     del std["params"], std["rec"]
-    if std["flash"] or any(std["launches"].values()):
+    if any(std["launches"].values()):
         raise AssertionError(f"standard training launched "
-                             f"{std['launches']}, {std['flash']} flash")
+                             f"{std['launches']}")
     xcfg = get_config(SSM_ARCH, crossbar=True, xbar_use_kernel=True)
-    xb = ssm_train_run(ops, xcfg, "pulse_sgd", SSM_XB_STEPS, xbk)
+    xb = train_run(ops, xcfg, "pulse_sgd", batches(SSM_XB_STEPS), 0,
+                   SSM_PROJECTIONS, xbk)
     per_pass = SSM_PROJECTIONS * xcfg.n_layers
     want = {"crossbar_fwd": 2 * per_pass * SSM_XB_STEPS,
             "crossbar_bwd": per_pass * SSM_XB_STEPS,
             "crossbar_dw": per_pass * SSM_XB_STEPS}
-    if xb["launches"] != want or xb["flash"]:
-        raise AssertionError(f"crossbar kernel mode ran {xb['launches']} "
-                             f"and {xb['flash']} flash, expected {want}")
+    if xb["launches"] != want:
+        raise AssertionError(f"crossbar kernel mode ran {xb['launches']}, "
+                             f"expected {want}")
     g = [t for path, t in _walk(xb.pop("params"))
          if any(k in ("g_plus", "g_minus") for k in path)]
     lo, hi = min(float(t.min()) for t in g), max(float(t.max()) for t in g)
@@ -5415,6 +5513,501 @@ def ssm_path(ops, xbk) -> dict:
     out["reduced serving"] = ssm_reduced(ops)
     out["reduced training"] = lm_train_card_vs_cpu(ops, SSM_ARCH)
     out["s"] = time.perf_counter() - t0
+    return out
+
+
+# -- the encoder-decoder family (seamless-m4t-medium at full width) ---------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+# bf16 decode against bf16 prefill, relative Frobenius distance of the
+# logits: d, the reference's own bf16-vs-float32 distance of its prefill
+# logits on its reduced config, the largest over 8 batches of 4 x 24
+# tokens on 32 source frames from numpy seeds 0-7 (0.0080-0.0092),
+# measured on the CPU; tests/test_torch_encdec.py computes it again and
+# holds this figure to it
+ENCDEC_BF16_DIST = 0.009219
+ENCDEC_TRAIN_STEPS, ENCDEC_XB_STEPS = 3, 2
+# crossbar projections a layer: the encoder's wq, wk, wv, wo, wi, wo; the
+# decoder's self and cross q, k, v, o, wi, wo (src_proj and the head stay
+# plain)
+ENCDEC_PROJECTIONS = {"encoder": 6, "decoder": 10}
+ENCDEC_SERVE_MAX_LEN, ENCDEC_SERVE_NEW = 64, 16
+FLASH_KERNELS = r"flash_tc_fwd|flash_fwd"
+
+
+class FlashRecorder:
+    """Records (causal, Sq, Skv) of each ``ops.flash_attention`` launch
+    while the main path runs, by wrapping the autograd function it
+    dispatches to on the card; adds no count."""
+
+    def __init__(self, ops):
+        self.ops, self.calls = ops, []
+
+    def __enter__(self):
+        orig, calls = self.ops._FlashAttention, self.calls
+        self.orig = orig
+
+        class Recording:
+            @staticmethod
+            def apply(q, k, v, scale, causal, *rest):
+                calls.append((bool(causal), q.shape[1], k.shape[1]))
+                return orig.apply(q, k, v, scale, causal, *rest)
+        self.ops._FlashAttention = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._FlashAttention = self.orig
+        return False
+
+
+def encdec_flash_calls(cfg, S: int, L: int) -> list[tuple]:
+    """The flash launches of one forward, in order: each encoder layer's
+    bidirectional self-attention (S on S), then each decoder layer's
+    causal self-attention (L on L) and its cross-attention (L on S)."""
+    return ([(False, S, S)] * cfg.encoder_layers
+            + [(True, L, L), (False, L, S)] * cfg.n_layers)
+
+
+def encdec_batch(cfg, B: int, S: int, L: int, gen, device="cuda",
+                 labels: bool = False) -> dict:
+    """S source frames (B, S, d), uniform in [-1, 1), and L target tokens
+    (and labels) drawn from ``gen`` on ``device``."""
+    batch = {"src_frames": torch.rand((B, S, cfg.d_model), generator=gen,
+                                      device=device) * 2 - 1}
+    names = ("tgt_tokens", "labels") if labels else ("tgt_tokens",)
+    for name in names:
+        batch[name] = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                                    device=device, dtype=torch.int32)
+    return batch
+
+
+def encdec_prefill(ops, model, params) -> dict:
+    """Step 22 (a): ``prefill_fn`` on PREFILL_BATCH x PREFILL_LEN target
+    tokens over as many source frames, bf16, the counts at 0 before and
+    read after: 36 flash launches, all wgmma/chunked, in the order
+    ``encdec_flash_calls`` gives (12 bidirectional, then 12 causal and 12
+    cross interleaved), no crossbar launch; logits finite, pad columns
+    -1e30; the peak memory, the time of one more call (CUDA events),
+    tokens/s and a profile with the flash kernels' share."""
+    cfg = model.cfg
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = encdec_batch(cfg, B, S, S, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ops)
+    with FlashRecorder(ops) as fr:
+        logits = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    n = cfg.encoder_layers + 2 * cfg.n_layers
+    check_flash_counts(ops, n, "wgmma", f"{ENCDEC_ARCH} prefill")
+    if fr.calls != encdec_flash_calls(cfg, S, S):
+        raise AssertionError(f"{ENCDEC_ARCH} prefill launched (causal, Sq, "
+                             f"Skv) {fr.calls}")
+    xb = {k: getattr(ops, k).launches for k in XB_NAMES}
+    if any(xb.values()):
+        raise AssertionError(f"{ENCDEC_ARCH} prefill launched {xb}")
+    want_shape = check_prefill_logits(logits, cfg, B, S)
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=1, warmup=0)
+    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1,
+                          match=FLASH_KERNELS)
+    out = {"flash_attention launches": n,
+           "bidirectional, causal, cross": [
+               sum(c == (False, S, S) for c in fr.calls[:cfg.encoder_layers]),
+               sum(c[0] for c in fr.calls),
+               sum(not c[0] for c in fr.calls[cfg.encoder_layers:])],
+           "route": "wgmma/chunked", "peak GB": peak / 1e9,
+           "prefill ms": ms, "prefill tokens/s": B * S / ms * 1e3,
+           "flash kernels ms (profiler)": prof["matched_ms"],
+           "profile": prof, "batch": batch}
+    print(f"encdec prefill ({ENCDEC_ARCH} full width and depth, "
+          f"{cfg.param_count():,} parameters, bf16 compute, {B} x {S} "
+          f"target tokens on {S} source frames): {n} flash_attention "
+          f"launches (bidirectional, causal, cross "
+          f"{out['bidirectional, causal, cross']}, all wgmma/chunked), "
+          f"logits {want_shape} finite, pad columns -1e30; peak "
+          f"{peak / 1e9:.2f} GB; {ms:.3f} ms, "
+          f"{out['prefill tokens/s']:.0f} target tokens/s; profile span "
+          f"{prof['span_ms']:.3f} ms, busy {ms3(prof['device_busy_ms'])} "
+          f"ms (flash kernels {ms3(prof['matched_ms'])} ms), idle share "
+          f"{ms3(prof['device_idle_share'])}")
+    print("encdec prefill profile (profiler on): " + json.dumps(prof))
+    return out
+
+
+def encdec_serve(ops, model, params, frames, BatchedServer) -> dict:
+    """``BatchedServer(batch=4)`` serving ``launch/serve.py``'s 8-token
+    prompts with ``max_new=ENCDEC_SERVE_NEW`` (23 steps) in the model's
+    compute dtype and a cache of it, its cross cache filled by ``encode``
+    (one flash launch an encoder layer) and ``fill_cross_cache`` from
+    ``frames``, its decode logits recorded; then ``prefill_fn`` on the
+    same frames and each slot's prompt + generated tokens (a check: its
+    launches are not the path's).  Returns the decode and prefill logits
+    (vocab columns), the sequences, the generated tokens, the server, its
+    time and launches."""
+    from repro_torch.models import encdec as ed
+    cfg = model.cfg
+    dtype = getattr(torch, cfg.compute_dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
+               for i in range(SERVE_BATCH)]
+    server = BatchedServer(model, params, batch=SERVE_BATCH,
+                           max_len=ENCDEC_SERVE_MAX_LEN, cache_dtype=dtype)
+    zero_flash_counts(ops)
+    with torch.no_grad():
+        enc = ed.encode(cfg, params, frames)
+    server.cache["cross"] = ed.fill_cross_cache(cfg, params, enc, dtype)
+    check_flash_counts(ops, cfg.encoder_layers, route,
+                       f"encode for the cross cache ({cfg.compute_dtype})")
+    encode_launches = ops.flash_attention.launches
+    del enc
+    rec = []
+
+    def recording(p, cache, batch):
+        logits, cache = model.decode_fn(p, cache, batch)
+        rec.append(logits[:, -1, :cfg.vocab_size].clone())
+        return logits, cache
+
+    server.decode = recording
+    zero_flash_counts(ops)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = server.generate(prompts, ENCDEC_SERVE_NEW)
+    end.record()
+    end.synchronize()
+    launches = ops.flash_attention.launches
+    steps, toks = server.stats.steps, server.stats.tokens_out
+    if (steps, toks) != (8 + ENCDEC_SERVE_NEW - 1,
+                         SERVE_BATCH * ENCDEC_SERVE_NEW):
+        raise AssertionError(f"server: {steps} steps, {toks} tokens")
+    seqs = torch.tensor([p + o for p, o in zip(prompts, outs)],
+                        dtype=torch.int32, device="cuda")
+    zero_flash_counts(ops)
+    full = model.prefill_fn(params, {"src_frames": frames,
+                                     "tgt_tokens": seqs})[
+        ..., :cfg.vocab_size]
+    torch.cuda.synchronize()
+    check_flash_counts(ops, cfg.encoder_layers + 2 * cfg.n_layers, route,
+                       f"the check's prefill ({cfg.compute_dtype})")
+    return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
+            "seqs": seqs, "outs": outs, "server": server, "steps": steps,
+            "tokens": toks, "ms": start.elapsed_time(end),
+            "launches": launches, "encode launches": encode_launches}
+
+
+def check_decode_in_norm(run: dict, dist: float, what: str) -> dict:
+    """bf16 decode against bf16 prefill: the logits' relative Frobenius
+    distance within 2 ``dist`` (two bf16 computations of one function,
+    each within ``dist`` of the float32 result), and every generated
+    token the prefill argmax but where its top-2 gap is within twice the
+    position's largest |decode - prefill| (a near-tie, counted); raises
+    otherwise."""
+    dec, pre = run["dec"], run["pre"]
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{what}: decode logits not finite")
+    rel = float(torch.linalg.norm(dec - pre) / torch.linalg.norm(pre))
+    if not rel <= 2 * dist:
+        raise AssertionError(f"{what}: decode vs prefill relative "
+                             f"distance {rel} > 2 x {dist}")
+    top2 = torch.topk(pre[:, 7:], 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    near = 2 * (dec - pre)[:, 7:].abs().amax(-1)
+    off = torch.tensor(run["outs"], device="cuda") != pre[:, 7:].argmax(-1)
+    if bool((off & (gap > near)).any()):
+        raise AssertionError(f"{what}: a generated token is not the "
+                             f"prefill argmax away from a near-tie")
+    return {"relative distance ||decode - prefill|| / ||prefill||": rel,
+            "bar": 2 * dist,
+            "max |decode - prefill| logit": float((dec - pre).abs().max()),
+            "max |logit|": float(pre.abs().max()),
+            "tokens excused as near-ties": int(off.sum()),
+            "steps": run["steps"], "tokens_out": run["tokens"],
+            "decode ms per step": run["ms"] / run["steps"],
+            "decode tokens/s": run["tokens"] / run["ms"] * 1e3,
+            "flash_attention launches in BatchedServer.generate":
+                run["launches"]}
+
+
+def encdec_decode(ops, model, model32, params, frames,
+                  BatchedServer) -> dict:
+    """Step 22 (b): ``encdec_serve`` in float32 compute with a float32
+    self and cross cache, its decode within LOGIT_BAR float32 of its
+    prefill; then in bf16 (bf16 caches), within 2 x ENCDEC_BF16_DIST in
+    norm (``check_decode_in_norm``); no flash launch while serving (a
+    decode step attends through plain ``decode_attention``); ms per step
+    and a profiled bf16 step."""
+    out = {}
+    run32 = encdec_serve(ops, model32, params, frames, BatchedServer)
+    out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
+                                  f"{ENCDEC_ARCH} float32")
+    out["float32"]["flash launches (encode)"] = run32["encode launches"]
+    del run32
+    run = encdec_serve(ops, model, params, frames, BatchedServer)
+    out["bfloat16"] = check_decode_in_norm(run, ENCDEC_BF16_DIST,
+                                           f"{ENCDEC_ARCH} bf16")
+    out["bfloat16"]["flash launches (encode)"] = run["encode launches"]
+    for compute, r in out.items():
+        if r["flash_attention launches in BatchedServer.generate"]:
+            raise AssertionError(f"{ENCDEC_ARCH} {compute}: serving "
+                                 f"launched the flash kernel")
+    server, seqs, steps = run["server"], run["seqs"], run["steps"]
+    step_batch = {"tokens": seqs[:, -1:], "length": steps}
+    prof = profile_device(lambda: model.decode_fn(params, server.cache,
+                                                  step_batch))
+    out["bfloat16"]["decode step profile"] = prof
+    r32, r = out["float32"], out["bfloat16"]
+    print(f"encdec decode vs prefill ({ENCDEC_ARCH}, cross cache from "
+          f"encode + fill_cross_cache on the prefill's {PREFILL_LEN} "
+          f"frames): float32 {r32['steps']} steps, max |decode - prefill| "
+          f"{r32['max |decode - prefill| logit']:.3e} (bar {r32['bar']}), "
+          f"{r32['tokens excused as near-ties']} tokens at near-ties, "
+          f"{r32['decode ms per step']:.3f} ms per step; bf16 relative "
+          f"distance "
+          f"{r['relative distance ||decode - prefill|| / ||prefill||']:.3e}"
+          f" (bar {r['bar']}), max |Δ| "
+          f"{r['max |decode - prefill| logit']:.3e} of max |logit| "
+          f"{r['max |logit|']:.3f}, {r['tokens excused as near-ties']} "
+          f"tokens at near-ties, {r['decode ms per step']:.3f} ms per step, "
+          f"{r['decode tokens/s']:.1f} tokens/s; one bf16 step under the "
+          f"profiler: {prof['span_ms']:.3f} ms span, busy "
+          f"{ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])}")
+    return out
+
+
+def train_run(ops, cfg, optimizer: str, batches: list[dict], flash: int,
+              keep: int = 0, xbk=None) -> dict:
+    """``make_train_step`` for ``cfg`` on cuda, one step of ``optimizer``
+    on the launcher's schedule per batch of ``batches`` (on the card), the
+    counts at 0 before and read after: ``flash`` flash launches, all
+    wgmma/chunked; each loss and grad norm finite; with ``xbk``, the
+    first ``keep`` forward and last ``keep`` bwd and dw crossbar launches
+    of the first step recorded (layer 0's).  Then the step's time (CUDA
+    events, 2 more steps on the first batch), peak memory, a profile and
+    the seconds each part took."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import make_train_step
+    steps = len(batches)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = launch_train_config(cfg, optimizer, steps)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    part_s = {"init": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ops)
+    metrics, rec = [], None
+    for s, batch in enumerate(batches):
+        if s == 0 and xbk is not None:
+            with Layer0Recorder(xbk, keep) as rec:
+                params, opt_state, m = step(params, opt_state, batch, s)
+        else:
+            params, opt_state, m = step(params, opt_state, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not (math.isfinite(metrics[-1]["loss"])
+                and math.isfinite(metrics[-1]["grad_norm"])):
+            raise AssertionError(f"{cfg.name} step {s}: {metrics[-1]}")
+    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
+    check_flash_counts(ops, flash, "wgmma", f"{cfg.name} training")
+    peak = torch.cuda.max_memory_allocated()
+    part_s["steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms = cuda_ms(lambda: step(params, opt_state, batches[0], 0), iters=2,
+                 warmup=0)
+    part_s["timed steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_device(lambda: step(params, opt_state, batches[0], 0),
+                          reps=1, match=r"crossbar_(fwd|bwd|dw)")
+    part_s["profiled step"] = time.perf_counter() - t0
+    return {"params": params, "rec": rec, "launches": launches, "s": part_s,
+            "flash": flash, "losses": [m["loss"] for m in metrics],
+            "grad norms": [m["grad_norm"] for m in metrics],
+            "peak GB": peak / 1e9, "step ms": ms,
+            "tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
+            "profile": prof}
+
+
+def encdec_train(ops, xbk) -> dict:
+    """Step 22 (c): the full config trains, bf16 compute, remat "full":
+    ENCDEC_TRAIN_STEPS adamw steps, then crossbar kernel mode with
+    pulse_sgd, ENCDEC_XB_STEPS steps (a step: 192 projections a forward,
+    6 an encoder layer and 10 a decoder layer, run twice under remat:
+    384 ``crossbar_fwd``, 192 ``crossbar_bwd`` and 192 ``crossbar_dw``),
+    encoder layer 0's launches of its first step held against their plain
+    versions within XB_BAR of sum_k |x_k||w_k| and re-timed on their
+    operands (kernel, plain, ``torch.bmm``, the bound); conductances in
+    [0, 4]."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.checkpoint import _walk
+    cfg = get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def batches(steps):
+        return [encdec_batch(cfg, PREFILL_BATCH, PREFILL_LEN, PREFILL_LEN,
+                             gen, labels=True) for _ in range(steps)]
+
+    def flash(steps):     # the forward's launches and their recomputation
+        return 2 * len(encdec_flash_calls(cfg, 1, 1)) * steps
+    std = train_run(ops, cfg, "adamw", batches(ENCDEC_TRAIN_STEPS),
+                    flash(ENCDEC_TRAIN_STEPS))
+    del std["params"], std["rec"]
+    if any(std["launches"].values()):
+        raise AssertionError(f"standard training launched "
+                             f"{std['launches']}")
+    gc_collect()
+    xcfg = get_config(ENCDEC_ARCH, crossbar=True, xbar_use_kernel=True)
+    xb = train_run(ops, xcfg, "pulse_sgd", batches(ENCDEC_XB_STEPS),
+                   flash(ENCDEC_XB_STEPS), ENCDEC_PROJECTIONS["encoder"],
+                   xbk)
+    per_pass = (ENCDEC_PROJECTIONS["encoder"] * xcfg.encoder_layers
+                + ENCDEC_PROJECTIONS["decoder"] * xcfg.n_layers)
+    want = {"crossbar_fwd": 2 * per_pass * ENCDEC_XB_STEPS,
+            "crossbar_bwd": per_pass * ENCDEC_XB_STEPS,
+            "crossbar_dw": per_pass * ENCDEC_XB_STEPS}
+    if xb["launches"] != want:
+        raise AssertionError(f"crossbar kernel mode ran {xb['launches']}, "
+                             f"expected {want}")
+    g = [t for path, t in _walk(xb.pop("params"))
+         if any(k in ("g_plus", "g_minus") for k in path)]
+    lo, hi = min(float(t.min()) for t in g), max(float(t.max()) for t in g)
+    if lo < 0.0 or hi > xcfg.xbar_w_max:
+        raise AssertionError(f"conductances in [{lo}, {hi}], outside "
+                             f"[0, {xcfg.xbar_w_max}]")
+    del g
+    rec = xb.pop("rec")
+    t0 = time.perf_counter()
+    xb["layer-0 launches vs plain, max |err| / sum |x||w|"] = \
+        check_layer0_launches(xbk, rec)
+    xb["rows"] = lm_crossbar_rows(xbk, rec, ENCDEC_ARCH)
+    xb["s"]["layer-0 checks and rows"] = time.perf_counter() - t0
+    del rec
+    prof = xb["profile"]
+    xb["projections a forward"] = per_pass
+    xb["conductance range"] = [lo, hi]
+    xb["crossbar kernels' share of device time"] = (
+        None if prof["device_busy_ms"] is None
+        else prof["matched_ms"] / prof["device_busy_ms"])
+    for what, r in (("standard, adamw", std),
+                    ("crossbar kernel mode, pulse_sgd", xb)):
+        print(f"encdec training ({ENCDEC_ARCH} full width and depth, bf16 "
+              f"compute, remat full, {PREFILL_BATCH} x {PREFILL_LEN} "
+              f"target tokens on {PREFILL_LEN} frames, {what}): launches "
+              f"{json.dumps(r['launches'])}, {r['flash']} flash; losses "
+              f"{[round(v, 4) for v in r['losses']]}; step "
+              f"{r['step ms']:.3f} ms, {r['tokens/s']:.0f} tokens/s, peak "
+              f"{r['peak GB']:.2f} GB; profile busy "
+              f"{ms3(r['profile']['device_busy_ms'])} ms of "
+              f"{r['profile']['span_ms']:.3f}, idle share "
+              f"{ms3(r['profile']['device_idle_share'])} [{card_line()}]; "
+              f"seconds {json.dumps(r['s'])}")
+    print(f"  encoder layer 0's launches vs plain (max |err| / sum |x||w|, "
+          f"bar {XB_BAR}): " + json.dumps(
+              xb["layer-0 launches vs plain, max |err| / sum |x||w|"])
+          + f"; conductances in [{lo}, {hi}]; crossbar kernels "
+          f"{ms3(prof['matched_ms'])} ms of the busy time")
+    print_crossbar_rows(xb["rows"])
+    print("encdec training profiles (profiler on): " + json.dumps(
+        {"standard": std["profile"], "crossbar": prof}))
+    return {"standard": std, "crossbar": xb}
+
+
+def encdec_reduced(ops) -> dict:
+    """Step 22 (d), serving: the reduced config in float32 compute,
+    ``prefill_fn`` on 2 x 64 target tokens over 96 source frames (the
+    cross-attention at Sq != Skv: 6 simt launches) and 8 decode steps over
+    float32 caches (the cross cache from ``encode``, 2 launches, and
+    ``fill_cross_cache``), on the card and on the CPU from the same
+    parameters and inputs, each output within CARD_VS_CPU_BAR of its
+    largest |value|."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist.sharding import tree_map
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ed
+    cfg = get_reduced_config(ENCDEC_ARCH, compute_dtype="float32")
+    p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    batch0 = encdec_batch(cfg, 2, 96, 64, torch.Generator().manual_seed(
+        SEED), device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), p0)
+        batch = {k: v.to(dev) for k, v in batch0.items()}
+        zero_lm_counts(ops)
+        pre = model.prefill_fn(params, batch)
+        if dev == "cuda":
+            check_flash_counts(ops, cfg.encoder_layers + 2 * cfg.n_layers,
+                               "simt", f"reduced {ENCDEC_ARCH} prefill")
+        cache = model.init_cache(2, 16, torch.float32, src_len=96)
+        with torch.no_grad():
+            enc = ed.encode(cfg, params, batch["src_frames"])
+        cache["cross"] = ed.fill_cross_cache(cfg, params, enc,
+                                             torch.float32)
+        tok, dec = batch["tgt_tokens"], []
+        for step in range(8):
+            logits, cache = model.decode_fn(
+                params, cache, {"tokens": tok[:, step:step + 1],
+                                "length": step})
+            dec.append(logits)
+        runs[dev] = (pre.cpu(), torch.cat(dec, dim=1).cpu(),
+                     cache["self"]["k"].cpu())
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(runs["cuda"], runs["cpu"]))
+    if not rel <= CARD_VS_CPU_BAR:
+        raise AssertionError(f"reduced {ENCDEC_ARCH} float32: card vs CPU "
+                             f"{rel}")
+    out = {"card vs cpu, of each output's largest (prefill, decode, self "
+           "k cache)": rel,
+           "flash launches (prefill, card)": cfg.encoder_layers
+           + 2 * cfg.n_layers}
+    print(f"encdec reduced serving ({ENCDEC_ARCH} reduced, float32, 2 x 64 "
+          f"prefill on 96 frames and 8 decode steps, card vs CPU): "
+          + json.dumps(out))
+    return out
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def encdec_path(ops, xbk) -> dict:
+    """The encoder-decoder family (module docstring, step 22)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import BatchedServer
+    t0 = time.perf_counter()
+    model = build_model(get_config(ENCDEC_ARCH), "cuda")
+    model32 = build_model(get_config(ENCDEC_ARCH, compute_dtype="float32"),
+                          "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out = {"init s": time.perf_counter() - t0,
+           "parameters": model.cfg.param_count(), "part s": {}}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        out["part s"][name] = time.perf_counter() - t
+
+    part("prefill", encdec_prefill, ops, model, params)
+    frames = out["prefill"].pop("batch")["src_frames"]
+    part("decode", encdec_decode, ops, model, model32, params, frames,
+         BatchedServer)
+    del params, frames
+    gc_collect()
+    part("train", encdec_train, ops, xbk)
+    gc_collect()
+    part("reduced serving", encdec_reduced, ops)
+    part("reduced training", lm_train_card_vs_cpu, ops, ENCDEC_ARCH)
+    out["s"] = time.perf_counter() - t0
+    print(f"encdec path parts (s): " + json.dumps(out["part s"]))
     return out
 
 
@@ -5586,6 +6179,9 @@ def main() -> int:
               for sem in ("chunked", "pallas")}))
     fw_err, fw_rows = flash_window_phase(fak, gen, report)
     phase_s["flash window phase"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fx_err, fx_rows = flash_cross_phase(fak, gen, report)
+    phase_s["flash cross phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     # -- eager recognition path: the counts start at 0 and are read after
@@ -5819,6 +6415,24 @@ def main() -> int:
                 if isinstance(out, dict) else out)
          for part, out in ssm.items()}))
 
+    # -- the encoder-decoder family (step 22): step 21's memory freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the encdec path: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    encdec = encdec_path(ops, xbk)
+    phase_s["encdec path"] = time.perf_counter() - t0
+    print(f"encdec path [{card}], {phase_s['encdec path']:.1f} s: "
+          + json.dumps(
+              {part: ({k: (v if not isinstance(v, dict) else
+                           {kk: vv for kk, vv in v.items()
+                            if "profile" not in kk and kk != "rows"})
+                       for k, v in out.items()
+                       if "profile" not in k and k != "rows"}
+                      if isinstance(out, dict) else out)
+               for part, out in encdec.items()}))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -5895,9 +6509,17 @@ def main() -> int:
                f"{SSM_ARCH} reduced, card vs CPU":
                ssm["reduced training"]["launches"][name]}
         for name in XB_NAMES}
+    # the encoder-decoder path's: the full-width kernel-mode steps (step 22
+    # (c)) and the reduced kernel-mode step held against the CPU (22 (d))
+    encdec_counted = {
+        name: {f"{ENCDEC_ARCH} crossbar kernel mode (full width)":
+               encdec["train"]["crossbar"]["launches"][name],
+               f"{ENCDEC_ARCH} reduced, card vs CPU":
+               encdec["reduced training"]["launches"][name]}
+        for name in XB_NAMES}
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
                         *lm_counted.items(), *moe_counted.items(),
-                        *ssm_counted.items()):
+                        *ssm_counted.items(), *encdec_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -5978,6 +6600,18 @@ def main() -> int:
                                    "bound_by", "tile")}
                 for r in ssm["train"]["crossbar"]["rows"]
                 if r["kernel"] == name]
+        if name in encdec_counted:
+            entries[-1]["launches_encdec"] = encdec_counted[name]
+            entries[-1]["encdec_train_layer0_rel_err"] = encdec["train"][
+                "crossbar"]["layer-0 launches vs plain, max |err| / sum "
+                "|x||w|"][name]
+            entries[-1]["encdec_shapes"] = [
+                {k: r[k] for k in ("M", "K", "N", "ms", "ms_device",
+                                   "plain_ms", "library_ms",
+                                   "library_ms_device", "bound_ms",
+                                   "bound_by", "tile")}
+                for r in encdec["train"]["crossbar"]["rows"]
+                if r["kernel"] == name]
         if name in lm_counted:
             entries[-1]["launches_lm_train"] = lm_counted[name]
             entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]
@@ -6049,6 +6683,26 @@ def main() -> int:
                     "flash launches (prefill, card)"]),
                 ("training steps vs CPU", res["reduced training"][
                     "flash_attention launches"]))}}
+    # the encoder-decoder path's launches (step 22): the bf16 prefill, the
+    # encode that fills the served cross cache, the training steps; on the
+    # fp32 kernel the float32 serving's encode and the reduced prefill and
+    # training steps held against the CPU
+    encdec_flash = {
+        "flash_attention": {
+            f"{ENCDEC_ARCH} prefill": encdec["prefill"][
+                "flash_attention launches"],
+            "encode for the served cross cache (bf16)": encdec["decode"][
+                "bfloat16"]["flash launches (encode)"],
+            "standard training steps": encdec["train"]["standard"]["flash"],
+            "crossbar kernel mode steps": encdec["train"]["crossbar"][
+                "flash"]},
+        "flash_attention_simt": {
+            "encode for the served cross cache (float32)": encdec[
+                "decode"]["float32"]["flash launches (encode)"],
+            "reduced prefill (float32)": encdec["reduced serving"][
+                "flash launches (prefill, card)"],
+            "reduced training steps vs CPU": encdec["reduced training"][
+                "flash_attention launches"]}}
     bwd_yard = lm_train["standard"]["attention backward yardsticks"]
 
     def fw_row(dt, case):
@@ -6065,7 +6719,10 @@ def main() -> int:
              "local layer, and the reduced bf16 prefill, 2, all "
              "wgmma/chunked with the window), and the MoE path "
              "(launches_moe: one prefill of each MoE configuration, one "
-             "launch a layer, all wgmma/chunked)"),
+             "launch a layer, all wgmma/chunked), and the encoder-decoder "
+             "path (launches_encdec: seamless-m4t-medium's prefill, 36, "
+             "the encode of its served cross cache, 12, and its training "
+             "steps, 72 a step, all wgmma/chunked)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
@@ -6074,11 +6731,17 @@ def main() -> int:
              "the hybrid path's reduced float32 prefill (launches_hybrid: "
              "2, simt/chunked with the window) and the MoE path's reduced "
              "float32 prefills and training steps held against the CPU "
-             "(launches_moe)")):
+             "(launches_moe) and the encoder-decoder path's float32 "
+             "encode, reduced prefill and training steps "
+             "(launches_encdec)")):
         fa = fa_row(dt, "chunked")
         launches += sum(lm_flash[name].values())
         launches += sum(hybrid_flash[name].values())
         launches += sum(moe_flash[name].values())
+        launches += sum(encdec_flash[name].values())
+        seamless = next(r for r in fx_rows if r["dtype"] == dt
+                        and r["case"].startswith("seamless")
+                        and r["semantics"] == "chunked")
         local = fw_row(dt, "recurrentgemma local layer"
                        + (", fp32" if dt == "float32" else ""))
         hd256 = fw_row(dt, "hd 256, no window"
@@ -6091,7 +6754,7 @@ def main() -> int:
             "launches_serving_path": lm["flash_attention launches serving"],
             "max_abs_err": max(max(r["max_abs_err"],
                                    r.get("max_abs_err, 64-key plain", 0.0))
-                               for r in fa_rows + fw_rows
+                               for r in fa_rows + fw_rows + fx_rows
                                if r["dtype"] == dt),
             "ms": fa["ms"], "plain_ms": fa["plain_ms"],
             "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
@@ -6102,6 +6765,15 @@ def main() -> int:
             "launches_moe": moe_flash[name],
             "launches_ssm": {f"{SSM_ARCH} prefill, decode and training "
                              f"(attention-free)": 0},
+            "launches_encdec": encdec_flash[name],
+            "encdec_non_causal": {k: seamless[k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "registers", "spill_stores")},
+            "non_causal_cases": [
+                {k: r[k] for k in ("case", "B", "S", "Skv", "H", "K",
+                                   "semantics", "max_abs_err", "ms",
+                                   "plain_ms", "library_ms", "bound_ms")}
+                for r in fx_rows if r["dtype"] == dt],
             "hybrid_local_layer": {k: local[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},
@@ -6129,7 +6801,11 @@ def main() -> int:
                      f"K=1, hd=256, window 2048, chunked), bound over the "
                      f"band's pairs, library SDPA with a boolean band mask "
                      f"and the kv heads expanded; hd256_no_window: (1, "
-                     f"4096, 16 on 1, hd 256, causal, chunked)"
+                     f"4096, 16 on 1, hd 256, causal, chunked); "
+                     f"encdec_non_causal: seamless's bidirectional and "
+                     f"cross-attention shape (4 x 2048 on 2048, 16 on 16, "
+                     f"hd 64, non-causal, chunked); non_causal_cases: the "
+                     f"flash cross phase's rows"
                      + ("; lm_train_backward_bound_ms: five products at "
                         "the bf16 peak; lm_train_backward_library_ms: "
                         "SDPA's backward at (4, 2048, 14 on 2, hd 64)"

@@ -7,9 +7,10 @@ only the architectures the port can build: the four dense (``attn``-only)
 configs, the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
 ``local`` windowed attention), the MoE family (moonshot-v1-16b-a3b and
 qwen3-moe-30b-a3b: ``moe`` blocks after an optional dense prefix) and
-the SSM mamba2-130m (``ssd`` blocks, attention-free).  The
-encoder-decoder and VLM configs wait for their layers (ROADMAP Queue 1
-item 10).  ``reduced()`` of each config module yields the CPU test
+the SSM mamba2-130m (``ssd`` blocks, attention-free) and the
+encoder-decoder seamless-m4t-medium (``models/encdec.py``: bidirectional
+encoder, decoder with cross-attention).  The VLM config waits for M-RoPE
+and its patch stub (ROADMAP Queue 1 item 10).  ``reduced()`` of each config module yields the CPU test
 variant (same topology, tiny widths).
 """
 from __future__ import annotations
@@ -151,8 +152,12 @@ class ModelConfig:
         return kinds
 
     def param_count(self) -> int:
-        """Parameters of the port's spec (shapes only, nothing allocated)."""
+        """Parameters of the port's spec (shapes only, nothing allocated):
+        the encoder-decoder's for ``family="encdec"``, else the LM's."""
         from repro_torch.dist.sharding import param_count
+        if self.family == "encdec":
+            from repro_torch.models.encdec import encdec_spec
+            return param_count(encdec_spec(self))
         from repro_torch.models.lm import lm_spec
         return param_count(lm_spec(self))
 
@@ -180,6 +185,7 @@ ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 

@@ -7,9 +7,11 @@
 ``--arch`` takes any architecture of ``configs.list_archs()``: the dense
 configs, recurrentgemma-9b, the MoE family (moonshot-v1-16b-a3b,
 qwen3-moe-30b-a3b; a decode step routes each slot's token among the
-experts, in groups of the batch's tokens, so it drops none) and
+experts, in groups of the batch's tokens, so it drops none),
 mamba2-130m (a decode step is the SSD recurrence on a fixed (H, P, N)
-state, whatever the length).
+state, whatever the length) and seamless-m4t-medium (the decoder, its
+cross-attention over the zero cross cache of ``--max-len`` source slots
+that ``init_cache`` makes, as the reference's server does).
 
 Parameters are restored from the latest step of ``--ckpt-dir`` (a
 checkpoint of ``launch.train``, the port's or the reference's), or else

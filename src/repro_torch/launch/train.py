@@ -7,7 +7,11 @@
 ``--arch`` takes any architecture of ``configs.list_archs()``; an MoE
 config's loss is the cross-entropy plus its load-balancing term (the
 logged ``aux``); mamba2-130m trains its SSD blocks through the chunked
-scan, each chunk rematerialized.  Runs on ``--device cuda`` unless given ``--device cpu``; without a card
+scan, each chunk rematerialized.  The encoder-decoder seamless-m4t-medium
+needs batches that carry ``src_frames``, which ``TokenStream`` does not
+make, so the CLI refuses it (as the reference's cannot train it either):
+train it through ``make_train_step`` or ``Trainer`` on such batches.
+Runs on ``--device cuda`` unless given ``--device cpu``; without a card
 the CUDA default raises.  TF32 stays off, so float32 compute means full
 fp32 products.  ``--mesh`` other than ``none`` raises: meshed training
 waits for the port's ``dist/`` (ROADMAP Queue 1 step 5.4).
@@ -58,6 +62,11 @@ def main(argv: list[str] | None = None) -> None:
 
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
+    if cfg.family == "encdec":
+        raise SystemExit(f"--arch {args.arch}: an encoder-decoder trains on "
+                         f"batches with src_frames, which TokenStream does "
+                         f"not make; use make_train_step or Trainer on such "
+                         f"batches")
     if args.crossbar:
         cfg = cfg.replace(crossbar=True)
 

@@ -1,10 +1,13 @@
-"""Attention: chunked (flash-style) prefill, cached decode (port of the
-self-attention part of ``repro/layers/attention.py``), with sliding
-windows (RecurrentGemma's ``local`` layers).
+"""Attention: chunked (flash-style) prefill, cached decode (port of
+``repro/layers/attention.py``), with sliding windows (RecurrentGemma's
+``local`` layers), bidirectional self-attention and cross-attention (the
+seamless encoder and decoder).
 
-Prefill (``cache is None``) is causal self-attention over the whole
-sequence, banded to the last ``window`` keys where the config has one,
-through ``chunked_attention``, the reference's own prefill function: q . k from the operand values with fp32 accumulation, the scale
+Prefill (``cache is None``) is self-attention over the whole sequence,
+causal unless the config says otherwise (``AttnConfig.causal``; the
+encoder's is False), banded to the last ``window`` keys where the config
+has one, through ``chunked_attention``, the reference's own prefill
+function: q . k from the operand values with fp32 accumulation, the scale
 after the product, p rounded to v's dtype before p . v.  It goes through
 ``kernels.ops.flash_attention(..., semantics="chunked")``: on CPU tensors
 that walks the reference's ``q_chunk``/``kv_chunk`` grid in plain PyTorch
@@ -20,8 +23,14 @@ bf16 operands enter the products as exact fp32 copies on the CPU, where
 the reference asks for fp32 accumulation; only the order of the sums
 differs.
 
-Not ported (ROADMAP Queue 1 item 10): cross-attention, bidirectional
-prefill and M-RoPE.  They raise ``NotImplementedError``.
+Cross-attention (``kv_source``, or a cache with ``"k"`` and no
+``"pos"``) projects q only from ``x``; k and v come from the source or
+the cross cache, with no RoPE on either side.  One query attends every
+source slot through ``decode_attention``; a longer query goes through
+``chunked_attention`` non-causal, Sq and Skv apart.
+
+Not ported (ROADMAP Queue 1 item 10): M-RoPE.  It raises
+``NotImplementedError``.
 
 KV caches are updated in place (the port's form of the reference's
 donated cache); nothing inside a step is read back to the host.
@@ -107,11 +116,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``_block_mask``).  ``skip_masked_blocks`` changes only the reference's
     schedule, causal or banded (a fully masked block contributes exactly 0
     once a valid key has arrived: corr = exp(-1e30 - m) = 0), so it is
-    accepted and has no effect.  Non-causal attention with Sq != Skv
-    (cross-attention) raises ``NotImplementedError``."""
+    accepted and has no effect.  Sq and Skv may differ (cross-attention
+    is non-causal; a causal mask counts both sides from 0)."""
     del skip_masked_blocks
-    if not causal and q.shape[1] != k.shape[1]:
-        raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
     return kernel_ops.flash_attention(q, k, v, scale=scale, causal=causal,
                                       semantics="chunked", q_chunk=q_chunk,
                                       kv_chunk=kv_chunk, window=window)
@@ -213,49 +220,72 @@ def _cache_append(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
 
 def attention_apply(params: dict, x: torch.Tensor, cfg: AttnConfig, *,
                     positions: torch.Tensor, cache: dict | None = None,
+                    kv_source: torch.Tensor | None = None,
                     xbar: XbarMode | None = None,
                     compute_dtype: torch.dtype = torch.bfloat16
                     ) -> tuple[torch.Tensor, dict | None]:
-    """Causal self-attention, banded to ``cfg.window`` keys if it is set.
+    """Self- or cross-attention.
 
-    Prefill: ``cache is None`` and ``x`` (B, L, d) is the whole sequence.
-    Decode: ``x`` is (B, 1, d) and ``cache`` holds the k/v buffers, which
-    are updated in place and returned."""
-    if cache is not None and "pos" not in cache:
-        raise NotImplementedError(f"cross-attention is {NOT_PORTED}")
-    if cache is None and not cfg.causal:
-        raise NotImplementedError(f"bidirectional prefill is {NOT_PORTED}")
+    Self-attention is causal unless ``cfg.causal`` is False, banded to
+    ``cfg.window`` keys if it is set.  Prefill: ``cache is None`` and
+    ``x`` (B, L, d) is the whole sequence.  Decode: ``x`` is (B, 1, d)
+    and ``cache`` holds the k/v buffers, which are updated in place and
+    returned.
+
+    Cross-attention: ``kv_source`` (B, S, d), the encoder's output, or a
+    cross cache (``"k"`` and ``"v"`` of (B, S, K, hd), no ``"pos"``),
+    whose k/v are used as they are.  A cache dict without ``"k"`` is
+    filled in place from ``kv_source``."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B = x.shape[0]
+    cross = kv_source is not None or (cache is not None and "pos" not in cache
+                                      and "k" in cache)
 
-    def proj(name, n):
-        return _split_heads(dense_apply(params[name], x,
+    def proj(name, n, src):
+        return _split_heads(dense_apply(params[name], src,
                                         compute_dtype=compute_dtype,
                                         xbar=xbar), n, hd)
 
-    q, k, v = proj("wq", H), proj("wk", K), proj("wv", K)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    q = proj("wq", H, x)
 
-    if cache is not None:
-        # decode: append one token, attend over the valid slots
-        cur = cache["length"].clone()      # position of the new token
-        _cache_append(cache, k, v)
-        kc, vc = cache["k"], cache["v"]
-        if "k_scale" in cache:
-            kc = _dequantize_kv(kc, cache["k_scale"])
-            vc = _dequantize_kv(vc, cache["v_scale"])
-        pos = cache["pos"]
-        valid = (pos >= 0) & (pos <= cur)
-        if cfg.window is not None:
-            valid &= pos > cur - cfg.window
-        y = decode_attention(q, kc, vc, valid[None, :].expand(B, -1),
-                             scale=cfg.scale)
+    if cross:
+        if cache is None or "k" not in cache:
+            k, v = proj("wk", K, kv_source), proj("wv", K, kv_source)
+            if cache is not None:
+                cache["k"], cache["v"] = k, v
+        else:
+            k, v = cache["k"], cache["v"]
+        if q.shape[1] == 1:
+            valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                               device=q.device)
+            y = decode_attention(q, k, v, valid, scale=cfg.scale)
+        else:
+            y = chunked_attention(q, k, v, scale=cfg.scale, causal=False,
+                                  window=None, q_chunk=cfg.q_chunk,
+                                  kv_chunk=cfg.kv_chunk)
     else:
-        y = chunked_attention(q, k, v, scale=cfg.scale, causal=True,
-                              window=cfg.window, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk,
-                              skip_masked_blocks=cfg.skip_masked_blocks)
+        k, v = proj("wk", K, x), proj("wv", K, x)
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
+        if cache is not None:
+            # decode: append one token, attend over the valid slots
+            cur = cache["length"].clone()      # position of the new token
+            _cache_append(cache, k, v)
+            kc, vc = cache["k"], cache["v"]
+            if "k_scale" in cache:
+                kc = _dequantize_kv(kc, cache["k_scale"])
+                vc = _dequantize_kv(vc, cache["v_scale"])
+            pos = cache["pos"]
+            valid = (pos >= 0) & (pos <= cur)
+            if cfg.window is not None:
+                valid &= pos > cur - cfg.window
+            y = decode_attention(q, kc, vc, valid[None, :].expand(B, -1),
+                                 scale=cfg.scale)
+        else:
+            y = chunked_attention(q, k, v, scale=cfg.scale,
+                                  causal=cfg.causal, window=cfg.window,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                  skip_masked_blocks=cfg.skip_masked_blocks)
 
     y = y.reshape(B, y.shape[1], H * hd)
     out = dense_apply(params["wo"], y, compute_dtype=compute_dtype, xbar=xbar)

@@ -1,5 +1,5 @@
-"""Model facade (port of ``repro/models/model.py``, the decoder-only
-``_build_lm``).
+"""Model facade (port of ``repro/models/model.py``: the decoder-only
+``_build_lm`` and the encoder-decoder ``_build_encdec``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` with:
 
@@ -9,7 +9,8 @@
   abstract_params()  the same tree as ``meta`` tensors (nothing allocated)
   loss_fn        (params, batch) -> (ce + aux, {"ce", "aux"}), under
                  autograd (the training step differentiates it); aux is
-                 the MoE blocks' load-balancing loss, 0 without them
+                 the MoE blocks' load-balancing loss, 0 without them (the
+                 encoder-decoder's: (ce, {"ce"}))
   prefill_fn     (params, batch) -> logits
   decode_fn      (params, cache, batch) -> (logits, cache); the cache is
                  updated in place (the reference donates it)
@@ -18,8 +19,14 @@
 
 ``prefill_fn`` and ``decode_fn`` run without autograd.  The device is
 ``cuda`` unless the caller passes ``device="cpu"``; a CUDA device without
-a card raises.  The encoder-decoder family is not ported (ROADMAP Queue 1
-item 10).
+a card raises.
+
+The encoder-decoder family (``family="encdec"``) takes batches of
+``src_frames`` (B, S, d) and ``tgt_tokens`` (B, L) (and ``labels`` to
+train); its ``init_cache(batch, max_len, dtype=bf16, src_len=None)``
+zeroes a cross cache of ``src_len`` (``max_len`` if None) slots, which a
+server decodes against unless the caller fills ``cache["cross"]`` with
+``encdec.fill_cross_cache``, as the reference's.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
-from repro_torch.layers.embedding import cross_entropy
+from repro_torch.layers.embedding import cross_entropy, embed_apply
+from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
 
 
@@ -131,11 +139,73 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
                  init_cache, input_specs)
 
 
+# ---------------------------------------------------------------------------
+# Encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> Model:
+    spec = ed.encdec_spec(cfg)
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+
+    def forward_logits(params, batch):
+        enc_out = ed.encode(cfg, params, batch["src_frames"])
+        B, L = batch["tgt_tokens"].shape
+        # the reference's table.astype(compute)[tok]: the same values
+        y = embed_apply(params["embed"], batch["tgt_tokens"], compute_dtype)
+        positions = _positions_for(cfg, B, L, device=y.device)
+        h, _ = ed.decode_stack(cfg, params, y, positions=positions,
+                               enc_out=enc_out)
+        return lm_mod.lm_logits(cfg, params, h)
+
+    def loss_fn(params, batch):
+        loss = cross_entropy(forward_logits(params, batch), batch["labels"])
+        return loss, {"ce": loss}
+
+    @torch.no_grad()
+    def prefill_fn(params, batch):
+        """Encode the source and score the target prefix (teacher-forced
+        prefill)."""
+        return forward_logits(params, batch)
+
+    @torch.no_grad()
+    def decode_fn(params, cache, batch):
+        tok = batch["tokens"]                      # (B, 1)
+        y = embed_apply(params["embed"], tok, compute_dtype)
+        positions = _positions_for(cfg, tok.shape[0], 1,
+                                   start=batch["length"], device=y.device)
+        h, cache = ed.decode_stack(cfg, params, y, positions=positions,
+                                   enc_out=None, caches=cache)
+        return lm_mod.lm_logits(cfg, params, h), cache
+
+    def init_cache(batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   src_len: int | None = None,
+                   device: str | torch.device = device) -> dict:
+        return ed.init_encdec_cache(cfg, batch, max_len, src_len or max_len,
+                                    dtype, device)
+
+    def input_specs(kind: str, seq_len: int, global_batch: int):
+        frames = ((global_batch, seq_len, cfg.d_model), torch.float32)
+        tok = ((global_batch, seq_len), torch.int32)
+        if kind == "train":
+            return {"src_frames": frames, "tgt_tokens": tok, "labels": tok}
+        if kind == "prefill":
+            return {"src_frames": frames, "tgt_tokens": tok}
+        batch = {"tokens": ((global_batch, 1), torch.int32),
+                 "length": ((), torch.int32)}
+        cache = shd.tree_map(lambda a: (tuple(a.shape), a.dtype),
+                             init_cache(global_batch, seq_len,
+                                        src_len=seq_len, device="meta"))
+        return batch, cache
+
+    return Model(cfg, spec, device, loss_fn, prefill_fn, decode_fn,
+                 init_cache, input_specs)
+
+
 def build_model(cfg: ModelConfig,
                 device: str | torch.device = "cuda") -> Model:
     """The model of ``cfg`` on ``device`` (``cuda`` unless the caller asks
     for the CPU; raises without a card)."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"the encoder-decoder family is {lm_mod.NOT_PORTED}")
+        return _build_encdec(cfg, resolve_device(device))
     return _build_lm(cfg, resolve_device(device))

@@ -204,14 +204,21 @@ def test_skip_masked_blocks_and_past_diagonal_chunks_change_nothing(dtype):
 
 
 def test_unported_chunked_attention_raises():
+    """Nothing of ``chunked_attention`` is refused any more: windows
+    (tests/test_torch_hybrid.py) and cross-attention, non-causal at Sq !=
+    Skv, which matches the reference's (tests/test_torch_encdec.py holds
+    it at more shapes and in bf16)."""
     x = torch.zeros(1, 16, 2, 16)
     kw = dict(scale=0.25, q_chunk=8, kv_chunk=8)
-    # windows are ported (tests/test_torch_hybrid.py); cross-attention not
     assert tattn.chunked_attention(x, x, x, causal=True, window=4,
                                    **kw).shape == x.shape
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tattn.chunked_attention(x, x[:, :8], x[:, :8], causal=False,
-                                window=None, **kw)
+    (jq, jk, jv), (q, k, v) = _both(_inputs(1, 16, 2, 2, 16, 3), "float32")
+    got = tattn.chunked_attention(q, k[:, :8], v[:, :8], causal=False,
+                                  window=None, **kw)
+    want = J_CHUNKED(jq, jk[:, :8], jv[:, :8], causal=False, window=None,
+                     **kw)
+    assert got.shape == (1, 16, 2, 16)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL, rtol=TOL)
     # causal with Sq != Skv keeps the mask counted from 0 on both sides
     got = tattn.chunked_attention(x, x[:, :8], x[:, :8], causal=True,
                                   window=None, **kw)

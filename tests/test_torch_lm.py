@@ -104,12 +104,16 @@ def test_configs_and_param_count_equal_the_reference(arch):
 def test_registry_lists_only_what_the_port_builds():
     assert sorted(tcfg.list_archs()) == sorted(
         DENSE + ["recurrentgemma-9b", "moonshot-v1-16b-a3b",
-                 "qwen3-moe-30b-a3b", "mamba2-130m"])
+                 "qwen3-moe-30b-a3b", "mamba2-130m", "seamless-m4t-medium"])
     assert tcfg.SHAPES == jcfg.SHAPES
     cfg = tcfg.get_config("qwen2-0.5b")
     assert tcfg.shape_applicable(cfg, "long_500k")[0] is False
     assert cfg.padded_vocab - cfg.vocab_size == 128
     assert cfg.param_count() == 494147456
+    assert tcfg.get_config("seamless-m4t-medium").param_count() == 878309376
+    # the only reference architecture the port does not build yet
+    assert set(jcfg.list_archs()) - set(tcfg.list_archs()) == {
+        "qwen2-vl-72b"}
 
 
 def test_unported_kinds_and_families_raise():
@@ -137,8 +141,16 @@ def test_unported_kinds_and_families_raise():
     assert float(metrics["aux"].detach()) > 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tbuild(cfg.replace(vlm_patches=4), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tbuild(cfg.replace(family="encdec"), "cpu")
+    # the encoder-decoder family builds (tests/test_torch_encdec.py holds
+    # it against the reference): an encoder and a decoder stack, a loss
+    # without an aux term
+    em = tbuild(cfg.replace(family="encdec", encoder_layers=1), "cpu")
+    ep = em.init(torch.Generator().manual_seed(0))
+    assert set(ep) == {"src_proj", "embed", "encoder", "enc_norm",
+                       "decoder", "final_norm", "lm_head"}
+    loss, metrics = em.loss_fn(ep, {"src_frames": torch.zeros(1, 8, 64),
+                                    "tgt_tokens": zeros, "labels": zeros})
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"ce"}
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

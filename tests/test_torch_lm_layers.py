@@ -389,15 +389,32 @@ def test_attention_apply_decode(cache_dtype):
 
 
 def test_unported_attention_raises():
-    _, tp = _attn_params()
-    x = torch.zeros(1, 4, 64)
-    pos = torch.zeros(1, 4, dtype=torch.long)
-    # windows are ported (tests/test_torch_hybrid.py)
-    assert tattn.attention_apply(tp, x, tattn.AttnConfig(**ACFG, window=8),
-                                 positions=pos)[0].shape == x.shape
-    for cfg, kw in ((tattn.AttnConfig(**ACFG, causal=False), {}),
-                    (tattn.AttnConfig(**ACFG),            # cross-attention
-                     {"cache": {"k": x, "v": x}}),
-                    (tattn.AttnConfig(**ACFG, mrope_sections=(2, 3, 3)), {})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tattn.attention_apply(tp, x, cfg, positions=pos, **kw)
+    """Windows (tests/test_torch_hybrid.py), bidirectional prefill and
+    cross-attention over a cache (tests/test_torch_encdec.py) are ported
+    and match the reference; M-RoPE still raises."""
+    jp, tp = _attn_params()
+    x = _randn((1, 4, 64), 30)
+    jx, tx = _pair(x, "float32")
+    pos = np.zeros((1, 4), np.int64)
+    kv = _randn((1, 6, 2, 16), 31)
+    assert tattn.attention_apply(tp, tx, tattn.AttnConfig(**ACFG, window=8),
+                                 positions=torch.from_numpy(pos)
+                                 )[0].shape == tx.shape
+    for causal, jkw, tkw in (
+            (False, {}, {}),                                # bidirectional
+            (True, {"cache": {"k": jnp.asarray(kv), "v": jnp.asarray(kv)}},
+             {"cache": {"k": torch.from_numpy(kv),         # cross-attention
+                        "v": torch.from_numpy(kv)}})):
+        want, _ = J["attn"](jp, jx, cfg=jattn.AttnConfig(**JACFG,
+                                                         causal=causal),
+                            positions=jnp.asarray(pos),
+                            compute_dtype=jnp.float32, **jkw)
+        got, _ = tattn.attention_apply(
+            tp, tx, tattn.AttnConfig(**ACFG, causal=causal),
+            positions=torch.from_numpy(pos), compute_dtype=torch.float32,
+            **tkw)
+        assert_close(got, want, TOL, (causal, list(tkw)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tattn.attention_apply(tp, tx, tattn.AttnConfig(
+            **ACFG, mrope_sections=(2, 3, 3)),
+            positions=torch.from_numpy(pos))
