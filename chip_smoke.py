@@ -387,25 +387,66 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     and step 18 (c)'s ``make_train_step`` check in standard and kernel
     mode (a kernel-mode miss held within twice the CPU's own spread,
     ``cpu_spread``);
-23. prints the wave and training-step times (CUDA events), compiled beside
+23. the VLM family at qwen2-vl-72b's full width with the depth cut (d
+    8192, 64 heads on 8 of 128, M-RoPE sections (16, 24, 24), MLP of
+    29568, vocab 152064, 256 stub patches; parameters from ``init`` at
+    seed 0, after step 22's memory is freed): (a) at 8 layers
+    (9,580,011,520 fp32 parameters; 80 do not fit one card)
+    ``prefill_fn`` on 2 x 2048 tokens with 256 patch embeddings (uniform,
+    seeded) merged by the patch merger, bf16, the counts at 0 before and
+    read after: 8 flash launches, all wgmma/chunked, no crossbar launch;
+    logits finite; the same call without the patches finite and apart at
+    every patch position; the peak memory, the time of one more call
+    (CUDA events), tokens/s and a profile with the idle share and the
+    flash kernels' share; (b) ``BatchedServer(batch=4)`` serving the
+    CLI's 8-token prompts with ``max_new=16`` (23 steps, text only, M-RoPE
+    at text positions), its decode logits held against ``prefill_fn`` on
+    the same tokens: in float32 compute and cache within 1e-3; in bf16
+    the logits' relative distance within twice VLM_BF16_DIST (the
+    reference's reduced-config bf16-vs-float32 distance, a fixed figure
+    from the CPU); tokens the prefill argmax but at near-ties (counted);
+    no flash launch; ms per step and a profiled bf16 step; (c) training at
+    full width and 1 layer (3,436,218,368 parameters: adamw's fp32
+    master, gradient and two moments, 16 bytes each, are 55 GB),
+    ``make_train_step`` at 2 x 2048 tokens with the patches, bf16, remat
+    "full", no profile: 3 adamw steps (losses finite, 2 flash launches a
+    step), then crossbar kernel mode with pulse_sgd, 2 steps (a step: 14
+    ``crossbar_fwd``, 7 projections twice under remat, 7 ``crossbar_bwd``
+    and 7 ``crossbar_dw`` at (M, K, N) of (4096, 8192, 8192), (4096,
+    8192, 1024), (4096, 8192, 29568) and (4096, 29568, 8192); the head,
+    the embedding and the patch merger stay plain), layer 0's launches of
+    the first step held against their plain versions within 1e-5 of
+    sum_k |x_k||w_k| and re-timed on their operands (kernel, plain,
+    ``torch.bmm``, the bound), conductances in [0, 4]; each run's step
+    ms, tokens/s and peak memory; (d) the reduced config on the card
+    against the CPU: a float32 prefill of 2 x 64 tokens with 8 patches
+    merged and 8 decode steps, each output within 1e-4 of its largest
+    |value|, and step 18 (c)'s ``make_train_step`` check with the
+    config's ``grad_accum`` of 4 and the patches, in standard and kernel
+    mode (a kernel-mode miss held within twice the CPU's own spread);
+    the flash vlm phase, run among the flash phases, holds both sources
+    at qwen2-vl's prefill shape (2 x 2048, 64 on 8, hd 128, causal) and
+    times them beside SDPA and the bound;
+24. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18-22
+    by the counts its capture recorded) — all taken before steps 18-23
     run, which come last of the paths, so that their large allocations
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
     ``flash_attention_simt``; the crossbar kernels' ``launches`` include
-    steps 12-18 and 20-22, broken down in ``launches_faults_and_farm``,
+    steps 12-18 and 20-23, broken down in ``launches_faults_and_farm``,
     ``launches_pipeline``, ``launches_lm_train``, ``launches_moe``,
-    ``launches_ssm`` and ``launches_encdec``, with mamba2's and
-    seamless's projection shapes in ``ssm_shapes`` and
-    ``encdec_shapes``; the flash kernels' steps 18-22 in
-    ``launches_lm_train``, ``launches_hybrid``, ``launches_moe``,
-    ``launches_ssm`` (0) and ``launches_encdec``, with the local layer's,
-    hd 256's and seamless's non-causal timings, the cross phase's rows
-    and the backward's yardsticks beside; ``crossbar_dw`` carries
+    ``launches_ssm``, ``launches_encdec`` and ``launches_vlm``, with
+    mamba2's, seamless's and qwen2-vl's projection shapes in
+    ``ssm_shapes``, ``encdec_shapes`` and ``vlm_shapes``; the flash
+    kernels' steps 18-23 in ``launches_lm_train``, ``launches_hybrid``,
+    ``launches_moe``, ``launches_ssm`` (0), ``launches_encdec`` and
+    ``launches_vlm``, with the local layer's, hd 256's, seamless's
+    non-causal and qwen2-vl's prefill timings, the cross phase's rows and
+    the backward's yardsticks beside; ``crossbar_dw`` carries
     ``farm_step_local_dw``), and last
     ``{"ok": true, "device": {...}}``.
 
@@ -686,7 +727,8 @@ def kernel_phase(xbk, ops, gen) -> tuple[float, list[dict]]:
     return max_err, rows
 
 
-def time_shape(xbk, app, xs, gp, gm) -> dict:
+def time_shape(xbk, app, xs, gp, gm, iters: int = 20,
+               device: bool = True) -> dict:
     T, M, K = xs.shape
     N = gp.shape[2]
     return with_device_ms(time_row("crossbar_fwd", T, M, K, N, {
@@ -694,9 +736,10 @@ def time_shape(xbk, app, xs, gp, gm) -> dict:
         "plain_ms": lambda: xbk.crossbar_fwd_plain(xs, gp, gm,
                                                    activation=False),
         "library_ms": lambda: torch.bmm(xs, gp - gm),
-    }, app=app), lambda: xbk.crossbar_fwd_kernel(xs, gp, gm,
-                                                 activation=False),
-        lambda: torch.bmm(xs, gp - gm), xbk.row_product_tile(T, M, K, N))
+    }, iters=iters, app=app), lambda: xbk.crossbar_fwd_kernel(
+        xs, gp, gm, activation=False),
+        lambda: torch.bmm(xs, gp - gm), xbk.row_product_tile(T, M, K, N),
+        device)
 
 
 def train_kernel_cases() -> list[dict]:
@@ -788,11 +831,14 @@ def train_kernel_phase(xbk, ops, gen) -> tuple[dict, list[dict]]:
     return max_err, rows
 
 
-def time_row(kernel, T, M, K, N, fns, dy_bytes=4, **extra) -> dict:
-    """CUDA-event times of ``fns`` (name -> callable) beside the bound."""
+def time_row(kernel, T, M, K, N, fns, dy_bytes=4, iters: int = 20,
+             **extra) -> dict:
+    """CUDA-event times of ``fns`` (name -> callable) over ``iters`` calls
+    beside the bound."""
     flop_ms, byte_ms = bound(T, M, K, N, kernel, dy_bytes)
     row = {"kernel": kernel, "T": T, "M": M, "K": K, "N": N, **extra}
-    row.update({k: cuda_ms(f) for k, f in fns.items()})
+    row.update({k: cuda_ms(f, iters=iters, warmup=min(3, iters))
+                for k, f in fns.items()})
     row.update(bound_ms=max(flop_ms, byte_ms),
                bound_by="operations" if flop_ms >= byte_ms else "bytes")
     return row
@@ -829,17 +875,20 @@ def time_train_shape(xbk, xs, ds, gp, gm, rule) -> list[dict]:
     ]
 
 
-def with_device_ms(row: dict, kernel, library, tile) -> dict:
-    """Add the kernel's and the library call's device times (``graph_ms``)
-    and the tile the wrapper picked (bwd: "tile/run") to a row."""
-    row.update(ms_device=graph_ms(kernel),
-               library_ms_device=graph_ms(library))
+def with_device_ms(row: dict, kernel, library, tile,
+                   device: bool = True) -> dict:
+    """Add the kernel's and the library call's device times (``graph_ms``;
+    None unless ``device``) and the tile the wrapper picked (bwd:
+    "tile/run") to a row."""
+    row.update(ms_device=graph_ms(kernel) if device else None,
+               library_ms_device=graph_ms(library) if device else None)
     if tile is not None:
         row["tile"] = tile
     return row
 
 
-def time_dw_codes(xbk, xs, codes, scale) -> dict:
+def time_dw_codes(xbk, xs, codes, scale, iters: int = 20,
+                  device: bool = True) -> dict:
     T, M, K = xs.shape
     N = codes.shape[2]
     dys = codes.float() * scale
@@ -848,13 +897,14 @@ def time_dw_codes(xbk, xs, codes, scale) -> dict:
         "plain_ms": lambda: xbk.crossbar_dw_plain(xs, codes,
                                                   dy_scale=scale),
         "library_ms": lambda: torch.bmm(xs.transpose(1, 2), dys),
-    }, dy_bytes=1, codes="int8"),
+    }, dy_bytes=1, iters=iters, codes="int8"),
         lambda: xbk.crossbar_dw_kernel(xs, codes, dy_scale=scale),
         lambda: torch.bmm(xs.transpose(1, 2), dys),
-        xbk.outer_product_tile(T, M, K, N, 1))
+        xbk.outer_product_tile(T, M, K, N, 1), device)
 
 
-def time_bwd_codes(xbk, codes, scale, gp, gm) -> dict:
+def time_bwd_codes(xbk, codes, scale, gp, gm, iters: int = 20,
+                   device: bool = True) -> dict:
     T, M, N = codes.shape
     K = gp.shape[1]
     dys = codes.float() * scale
@@ -863,10 +913,11 @@ def time_bwd_codes(xbk, codes, scale, gp, gm) -> dict:
         "plain_ms": lambda: xbk.crossbar_bwd_plain(codes, gp, gm,
                                                    dy_scale=scale),
         "library_ms": lambda: torch.bmm(dys, (gp - gm).transpose(1, 2)),
-    }, dy_bytes=1, codes="int8"),
+    }, dy_bytes=1, iters=iters, codes="int8"),
         lambda: xbk.crossbar_bwd_kernel(codes, gp, gm, dy_scale=scale),
         lambda: torch.bmm(dys, (gp - gm).transpose(1, 2)),
-        "/".join(map(str, xbk._pick_bwd(None, None, T, M, K, N, 1))))
+        "/".join(map(str, xbk._pick_bwd(None, None, T, M, K, N, 1))),
+        device)
 
 
 def outer_product_cases() -> list[tuple[int, int, int, int]]:
@@ -4158,11 +4209,14 @@ class Layer0Recorder:
     """Keeps the operands and outputs of chosen kernel launches while the
     main path runs: the first ``keep`` forward launches and the last
     ``keep`` bwd and dw launches (layer 0's, in a step's forward and
-    backward), by wrapping the launchers that ``ops`` dispatches to."""
+    backward), by wrapping the launchers that ``ops`` dispatches to.
+    With ``offload`` they are kept in host memory until ``to_device``
+    (a full-width layer's fp32 conductance copies would not fit beside
+    the step)."""
 
-    def __init__(self, xbk, keep: int):
+    def __init__(self, xbk, keep: int, offload: bool = False):
         import collections
-        self.xbk, self.keep = xbk, keep
+        self.xbk, self.keep, self.offload = xbk, keep, offload
         self.orig = {n: getattr(xbk, f"{n}_kernel")
                      for n in ("crossbar_fwd", "crossbar_bwd",
                                "crossbar_dw")}
@@ -4177,7 +4231,9 @@ class Layer0Recorder:
             def rec(*args, **kwargs):
                 out = fn(*args, **kwargs)
                 if not first or len(store) < self.keep:
-                    store.append((args, kwargs, out))
+                    entry = (args, kwargs, out)
+                    store.append(_moved(entry, "cpu") if self.offload
+                                 else entry)
                 return out
             setattr(self.xbk, f"{name}_kernel", rec)
         wrap("crossbar_fwd", self.fwd, True)
@@ -4189,6 +4245,25 @@ class Layer0Recorder:
         for n, fn in self.orig.items():
             setattr(self.xbk, f"{n}_kernel", fn)
         return False
+
+    def to_device(self) -> None:
+        """The offloaded launches back on the card."""
+        for store in (self.fwd, self.bwd, self.dw):
+            entries = [_moved(e, "cuda") for e in store]
+            store.clear()
+            store.extend(entries)
+
+
+def _moved(tree, device: str):
+    """``tree`` (tuples, dicts, tensors, other leaves) with its tensors
+    copied to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(t, device) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree
 
 
 def check_relative(got, want, mag, what) -> float:
@@ -4227,36 +4302,41 @@ def check_layer0_launches(xbk, rec) -> dict:
     return worst
 
 
-def lm_crossbar_rows(xbk, rec, app: str = "qwen2-0.5b") -> list[dict]:
-    """Kernel / plain / ``torch.bmm`` times (and device times) of the
-    recorded layer-0 launches at each distinct LM shape, beside the
-    bound."""
+def lm_crossbar_rows(xbk, rec, app: str = "qwen2-0.5b", iters: int = 20,
+                     device: bool = True) -> list[dict]:
+    """Kernel / plain / ``torch.bmm`` times over ``iters`` calls (and,
+    with ``device``, device times) of the recorded layer-0 launches at
+    each distinct LM shape, beside the bound."""
     rows, seen = [], set()
     for (xs, gp, gm), _, _ in rec.fwd:
         key = ("crossbar_fwd",) + tuple(xs.shape) + (gp.shape[2],)
         if key not in seen:
             seen.add(key)
-            rows.append(time_shape(xbk, app, xs, gp, gm))
+            rows.append(time_shape(xbk, app, xs, gp, gm, iters, device))
     for (dys, gp, gm), kw, _ in rec.bwd:
         key = ("crossbar_bwd",) + tuple(dys.shape) + (gp.shape[1],)
         if key not in seen:
             seen.add(key)
-            rows.append(time_bwd_codes(xbk, dys, kw["dy_scale"], gp, gm))
+            rows.append(time_bwd_codes(xbk, dys, kw["dy_scale"], gp, gm,
+                                       iters, device))
     for (xs, dys), kw, _ in rec.dw:
         key = ("crossbar_dw",) + tuple(xs.shape) + (dys.shape[2],)
         if key not in seen:
             seen.add(key)
-            rows.append(time_dw_codes(xbk, xs, dys, kw["dy_scale"]))
+            rows.append(time_dw_codes(xbk, xs, dys, kw["dy_scale"], iters,
+                                      device))
     return rows
 
 
 def print_crossbar_rows(rows: list[dict]) -> None:
+    def ms4(x):
+        return "not measured" if x is None else f"{x:.4f}"
     for r in rows:
         print(f"  {r['kernel']} (M, K, N) = ({r['M']}, {r['K']}, {r['N']})"
               f"{' int8 codes' if r.get('codes') else ''}: {r['ms']:.4f} ms "
-              f"(device {r['ms_device']:.4f}), plain {r['plain_ms']:.4f}, "
+              f"(device {ms4(r['ms_device'])}), plain {r['plain_ms']:.4f}, "
               f"torch.bmm {r['library_ms']:.4f} (device "
-              f"{r['library_ms_device']:.4f}), bound {r['bound_ms']:.4f} "
+              f"{ms4(r['library_ms_device'])}), bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})")
 
 
@@ -4406,11 +4486,12 @@ def xbar_projections(params) -> tuple[int, int]:
 
 
 def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
-    """Step 18 (c), 20 (d), 21 (d) and 22 (d): one reduced
+    """Step 18 (c), 20 (d), 21 (d), 22 (d) and 23 (d): one reduced
     ``make_train_step`` step of ``arch`` (sgd 0.1, float32 compute; an
-    encoder-decoder's batch carries 96 source frames) on the card against
-    the same step on the CPU, from the same parameters and batch, in
-    standard and
+    encoder-decoder's batch carries 96 source frames, a VLM's its
+    ``patch_embeds`` and the config's ``grad_accum`` of 4 microbatches) on
+    the card against the same step on the CPU, from the same parameters
+    and batch, in standard and
     kernel mode, the counts at 0 before and read after.  The loss, its
     aux term and the grad norm within 1e-5 relative, each gradient leaf
     within CPU_STEP_BAR of its largest magnitude, each new parameter
@@ -4421,8 +4502,9 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
     within 10 % in the norm.  An encoder-decoder's kernel mode is chaotic
     at this size (its reduced attention projections' gradients move ~9 %
     in the norm when the CPU step starts from parameters perturbed in the
-    last bit): a miss there is held within twice the CPU's own spread
-    (``cpu_spread``) where that exceeds those bars."""
+    last bit): a miss there, and in a VLM's kernel mode, is held within
+    twice the CPU's own spread (``cpu_spread``) where that exceeds those
+    bars."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core import quantization as tq
     from repro_torch.data import TokenStream
@@ -4446,8 +4528,13 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
                 cfg, 4, 96, 1, torch.Generator().manual_seed(SEED),
                 device="cpu")["src_frames"],
                 "tgt_tokens": batch["tokens"], "labels": batch["labels"]}
+        if cfg.vlm_patches:
+            batch["patch_embeds"] = uniform_patches(
+                cfg, 4, torch.Generator().manual_seed(SEED), "cpu")
+        accum = cfg.grad_accum if cfg.family == "vlm" else 1
 
-        def step_on(dev, p0=p0, cfg=cfg, batch=batch, mode=mode):
+        def step_on(dev, p0=p0, cfg=cfg, batch=batch, mode=mode,
+                    accum=accum):
             """One sgd step on ``dev`` from ``p0``: (metrics, gradients,
             new parameters, near-boundary inputs or near-ties)."""
             nonlocal outside, inside
@@ -4464,7 +4551,8 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
             seen, restore = count_near_boundaries(tq)
             moe.ROUTING = []
             try:
-                params, _, m = make_train_step(build_model(cfg, dev), opt)(
+                params, _, m = make_train_step(
+                    build_model(cfg, dev), opt, grad_accum=accum)(
                     params, opt.init(params),
                     {k: v.to(dev) for k, v in batch.items()}, 0)
                 ties = sum(int((r.margin < MOE_NEAR_TIE).sum())
@@ -4495,7 +4583,7 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
             nrel = [float(torch.linalg.norm(a - b) / torch.linalg.norm(
                 b).clamp_min(1e-30)) for a, b in zip(gc, gp)]
             loss_bar, leaf_bar = 1e-4, [0.1] * len(nrel)
-            if cfg.family == "encdec" and mode == "kernel":
+            if cfg.family in ("encdec", "vlm") and mode == "kernel":
                 spread = cpu_spread(step_on, p0, mp["loss"], gp)
                 loss_bar = max(loss_bar, 2 * spread["loss rel"])
                 leaf_bar = [max(0.1, 2 * x) for x in spread["leaf nrel"]]
@@ -4521,19 +4609,21 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
             out[mode]["card vs CPU max leaf nrel"] = max(nrel)
     launches = {n: getattr(ops, n).launches for n in XB_NAMES}
     rcfg = get_reduced_config(arch)
+    accum = rcfg.grad_accum if rcfg.family == "vlm" else 1
 
     def attention(kinds):       # the blocks that launch the flash kernel
         return sum(k not in ("rec", "ssd") for k in kinds)
     # a step: the forward, and the periods' (an encoder-decoder's every
-    # layer's) launches again under remat
+    # layer's) launches again under remat, once a microbatch
     if rcfg.family == "encdec":
         flash = 2 * (rcfg.encoder_layers + 2 * rcfg.n_layers)
     else:
         lay = stack_layout(rcfg)
-        flash = (attention(lay.prefix) + attention(lay.suffix)
-                 + 2 * lay.periods * attention(lay.pattern))
-    want = {"crossbar_fwd": outside + 2 * inside,     # remat: periods twice
-            "crossbar_bwd": outside + inside, "crossbar_dw": outside + inside}
+        flash = accum * (attention(lay.prefix) + attention(lay.suffix)
+                         + 2 * lay.periods * attention(lay.pattern))
+    want = {"crossbar_fwd": accum * (outside + 2 * inside),  # remat: twice
+            "crossbar_bwd": accum * (outside + inside),
+            "crossbar_dw": accum * (outside + inside)}
     if launches != want:
         raise AssertionError(f"card vs CPU kernel mode ran {launches}, "
                              f"expected {want}")
@@ -4643,9 +4733,12 @@ def hybrid_serve(ops, model, params, BatchedServer) -> dict:
     prompts with ``max_new=16`` (23 steps, the local layers' rolling
     buffers of 64 slots) in the model's compute dtype and a cache of it,
     its decode logits recorded; then ``prefill_fn`` on each slot's prompt
-    + generated tokens (a check: its 12 windowed launches are not the
-    path's).  Returns the decode and prefill logits (vocab columns), the
-    sequences, the generated tokens, the server, its time and launches."""
+    + generated tokens (a check: its launches, one an attention layer,
+    the local layers' windowed, are not the path's).  Returns the decode
+    and prefill logits (vocab columns), the sequences, the generated
+    tokens, the server, its time and launches.  Serves the hybrid, SSM
+    and VLM families (a VLM's prompts are text, as the CLI's)."""
+    from repro_torch.kernels import flash_attention as fak
     cfg = model.cfg
     dtype = getattr(torch, cfg.compute_dtype)
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
@@ -4678,8 +4771,13 @@ def hybrid_serve(ops, model, params, BatchedServer) -> dict:
     zero_flash_counts(ops)
     full = model.prefill_fn(params, {"tokens": seqs})[..., :cfg.vocab_size]
     torch.cuda.synchronize()
-    check_windowed_counts(ops, cfg.layer_kinds().count("local"), route,
-                          f"the check's prefill ({cfg.compute_dtype})")
+    kinds = cfg.layer_kinds()
+    check_flash_counts(ops, sum(k not in ("rec", "ssd") for k in kinds),
+                       route, f"the check's prefill ({cfg.compute_dtype})")
+    windowed = fak.flash_attention_kernel.windowed
+    if windowed != kinds.count("local"):
+        raise AssertionError(f"the check's prefill: {windowed} windowed "
+                             f"flash launches")
     return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
             "seqs": seqs, "outs": outs, "server": server, "steps": steps,
             "tokens": toks, "ms": start.elapsed_time(end),
@@ -5779,15 +5877,17 @@ def encdec_decode(ops, model, model32, params, frames,
 
 
 def train_run(ops, cfg, optimizer: str, batches: list[dict], flash: int,
-              keep: int = 0, xbk=None) -> dict:
+              keep: int = 0, xbk=None, profile: bool = True,
+              offload: bool = False) -> dict:
     """``make_train_step`` for ``cfg`` on cuda, one step of ``optimizer``
     on the launcher's schedule per batch of ``batches`` (on the card), the
     counts at 0 before and read after: ``flash`` flash launches, all
     wgmma/chunked; each loss and grad norm finite; with ``xbk``, the
     first ``keep`` forward and last ``keep`` bwd and dw crossbar launches
-    of the first step recorded (layer 0's).  Then the step's time (CUDA
-    events, 2 more steps on the first batch), peak memory, a profile and
-    the seconds each part took."""
+    of the first step recorded (layer 0's; in host memory with
+    ``offload``).  Then the step's time (CUDA events, 2 more steps on the
+    first batch), peak memory, a profile (None unless ``profile``) and the
+    seconds each part took."""
     from repro_torch.models import build_model
     from repro_torch.runtime import make_train_step
     steps = len(batches)
@@ -5805,7 +5905,7 @@ def train_run(ops, cfg, optimizer: str, batches: list[dict], flash: int,
     metrics, rec = [], None
     for s, batch in enumerate(batches):
         if s == 0 and xbk is not None:
-            with Layer0Recorder(xbk, keep) as rec:
+            with Layer0Recorder(xbk, keep, offload) as rec:
                 params, opt_state, m = step(params, opt_state, batch, s)
         else:
             params, opt_state, m = step(params, opt_state, batch, s)
@@ -5821,16 +5921,20 @@ def train_run(ops, cfg, optimizer: str, batches: list[dict], flash: int,
     ms = cuda_ms(lambda: step(params, opt_state, batches[0], 0), iters=2,
                  warmup=0)
     part_s["timed steps"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    prof = profile_device(lambda: step(params, opt_state, batches[0], 0),
-                          reps=1, match=r"crossbar_(fwd|bwd|dw)")
-    part_s["profiled step"] = time.perf_counter() - t0
+    prof = None
+    if profile:
+        t0 = time.perf_counter()
+        prof = profile_device(lambda: step(params, opt_state, batches[0],
+                                           0),
+                              reps=1, match=r"crossbar_(fwd|bwd|dw)")
+        part_s["profiled step"] = time.perf_counter() - t0
+    tokens = next(v for k, v in batches[0].items()
+                  if k in ("tokens", "tgt_tokens")).numel()
     return {"params": params, "rec": rec, "launches": launches, "s": part_s,
             "flash": flash, "losses": [m["loss"] for m in metrics],
             "grad norms": [m["grad_norm"] for m in metrics],
             "peak GB": peak / 1e9, "step ms": ms,
-            "tokens/s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
-            "profile": prof}
+            "tokens/s": tokens / ms * 1e3, "profile": prof}
 
 
 def encdec_train(ops, xbk) -> dict:
@@ -6011,6 +6115,325 @@ def encdec_path(ops, xbk) -> dict:
     return out
 
 
+# -- the VLM family (qwen2-vl-72b at full width, the depth cut) -------------
+
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 8            # serving depth: 9,580,011,520 fp32 parameters
+VLM_TRAIN_LAYERS = 1      # training depth: 3,436,218,368
+VLM_BATCH = 2             # prefill and training: 2 x 2048 tokens
+# bf16 decode against bf16 prefill, relative Frobenius distance of the
+# logits: d, the reference's own bf16-vs-float32 distance of its prefill
+# logits on its reduced config, the largest over 8 batches of 4 x 24 text
+# tokens from numpy seeds 0-7 (0.0109-0.0130), measured on the CPU;
+# tests/test_torch_vlm.py computes it again and holds this figure to it
+VLM_BF16_DIST = 0.012994
+VLM_TRAIN_STEPS, VLM_XB_STEPS = 3, 2
+# (B, Sq, Skv, H, K, hd, dtype, what) of the VLM flash phase: qwen2-vl's
+# prefill attention (64 heads on 8, hd 128, causal) in both sources
+VLM_FLASH_CASES = [
+    (VLM_BATCH, PREFILL_LEN, PREFILL_LEN, 64, 8, 128, "bfloat16",
+     "qwen2-vl prefill"),
+    (VLM_BATCH, PREFILL_LEN, PREFILL_LEN, 64, 8, 128, "float32",
+     "qwen2-vl prefill, fp32"),
+]
+
+
+def flash_vlm_phase(fak, gen, report) -> tuple[float, list[dict]]:
+    """Both flash sources causal at VLM_FLASH_CASES (``flash_case``):
+    qwen2-vl's prefill shape beside SDPA and the bound, in both functions
+    under the flash phase's bars.  Returns (max |err|, rows).  Launches
+    here are not counted."""
+    worst, rows = 0.0, []
+    for B, Sq, Skv, H, K, hd, dt, what in VLM_FLASH_CASES:
+        err, case_rows = flash_case(fak, gen, report, B, Sq, Skv, H, K, hd,
+                                    True, dt, what)
+        worst = max(worst, err)
+        rows += case_rows
+    print(f"flash vlm phase: qwen2-vl's prefill shape ({VLM_BATCH} x "
+          f"{PREFILL_LEN}, 64 heads on 8, hd 128, causal) in both sources "
+          f"x 2 functions within the flash phase's bars; max |err| "
+          f"{worst:.3e}")
+    print_flash_rows(rows)
+    return worst, rows
+
+
+def uniform_patches(cfg, B: int, gen, device="cuda") -> torch.Tensor:
+    """Stub patch embeddings (B, vlm_patches, d_model), uniform in [-1,
+    1), drawn from ``gen`` on ``device``."""
+    return torch.rand((B, cfg.vlm_patches, cfg.d_model), generator=gen,
+                      device=device) * 2 - 1
+
+
+def vlm_batch(cfg, B: int, L: int, gen, labels: bool = False) -> dict:
+    """L tokens (and labels) and the config's patch embeddings for B rows,
+    drawn from ``gen`` on the card."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, L),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "patch_embeds": uniform_patches(cfg, B, gen)}
+    if labels:
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (B, L),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32)
+    return batch
+
+
+def vlm_prefill(ops, model, params) -> dict:
+    """Step 23 (a): ``prefill_fn`` on VLM_BATCH x PREFILL_LEN tokens with
+    the config's 256 patch embeddings merged, bf16, the counts at 0 before
+    and read after: one flash launch a layer, all wgmma/chunked, no
+    crossbar launch; logits finite; the same call without the patches (a
+    check, not counted) finite and apart at every patch position; the
+    peak memory, the time of one more call (CUDA events), tokens/s and a
+    profile with the idle share and the flash kernels' share."""
+    cfg = model.cfg
+    B, S, P = VLM_BATCH, PREFILL_LEN, cfg.vlm_patches
+    batch = vlm_batch(cfg, B, S, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ops)
+    logits = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    check_flash_counts(ops, cfg.n_layers, "wgmma", f"{VLM_ARCH} prefill")
+    xb = {k: getattr(ops, k).launches for k in XB_NAMES}
+    if any(xb.values()):
+        raise AssertionError(f"{VLM_ARCH} prefill launched {xb}")
+    want_shape = check_prefill_logits(logits, cfg, B, S)
+    peak = torch.cuda.max_memory_allocated()
+    plain = model.prefill_fn(params, {"tokens": batch["tokens"]})
+    check_prefill_logits(plain, cfg, B, S)
+    apart = (logits[:, :P] != plain[:, :P]).any(-1)
+    if not bool(apart.all()):
+        raise AssertionError(f"{VLM_ARCH} prefill: merged and unmerged "
+                             f"logits equal at a patch position")
+    diff = float((logits - plain).abs().max())
+    del logits, plain
+    ms = cuda_ms(lambda: model.prefill_fn(params, batch), iters=1, warmup=0)
+    prof = profile_device(lambda: model.prefill_fn(params, batch), reps=1,
+                          match=FLASH_KERNELS)
+    out = {"layers": cfg.n_layers, "parameters": cfg.param_count(),
+           "flash_attention launches": cfg.n_layers,
+           "route": "wgmma/chunked", "peak GB": peak / 1e9,
+           "max |merged - unmerged| logit": diff,
+           "prefill ms": ms, "prefill tokens/s": B * S / ms * 1e3,
+           "flash kernels ms (profiler)": prof["matched_ms"],
+           "profile": prof}
+    print(f"vlm prefill ({VLM_ARCH} full width, {cfg.n_layers} layers, "
+          f"{cfg.param_count():,} parameters, bf16 compute, {B} x {S} "
+          f"tokens, {P} patches merged): {cfg.n_layers} flash_attention "
+          f"launches (all wgmma/chunked), logits {want_shape} finite, "
+          f"apart from the unmerged call's at every patch position (max "
+          f"|Δ| {diff:.3e}); peak {peak / 1e9:.2f} GB; {ms:.3f} ms, "
+          f"{out['prefill tokens/s']:.0f} tokens/s; profile span "
+          f"{prof['span_ms']:.3f} ms, busy {ms3(prof['device_busy_ms'])} "
+          f"ms (flash kernels {ms3(prof['matched_ms'])} ms), idle share "
+          f"{ms3(prof['device_idle_share'])} [{card_line()}]")
+    print("vlm prefill profile (profiler on): " + json.dumps(prof))
+    return out
+
+
+def vlm_decode(ops, model, model32, params, BatchedServer) -> dict:
+    """Step 23 (b): ``hybrid_serve`` (the CLI's text prompts, 23 steps) in
+    float32 compute with a float32 cache, its decode within LOGIT_BAR
+    float32 of its prefill; then in bf16 (a bf16 cache), within 2 x
+    VLM_BF16_DIST in norm (``check_decode_in_norm``); no flash launch
+    while serving; ms per step and a profiled bf16 step."""
+    out = {}
+    run32 = hybrid_serve(ops, model32, params, BatchedServer)
+    out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
+                                  f"{VLM_ARCH} float32")
+    del run32
+    run = hybrid_serve(ops, model, params, BatchedServer)
+    out["bfloat16"] = check_decode_in_norm(run, VLM_BF16_DIST,
+                                           f"{VLM_ARCH} bf16")
+    for compute, r in out.items():
+        if r["flash_attention launches in BatchedServer.generate"]:
+            raise AssertionError(f"{VLM_ARCH} {compute}: serving launched "
+                                 f"the flash kernel")
+    server, seqs, steps = run["server"], run["seqs"], run["steps"]
+    step_batch = {"tokens": seqs[:, -1:], "length": steps}
+    prof = profile_device(lambda: model.decode_fn(params, server.cache,
+                                                  step_batch))
+    out["bfloat16"]["decode step profile"] = prof
+    r32, r = out["float32"], out["bfloat16"]
+    print(f"vlm decode vs prefill ({VLM_ARCH}, {model.cfg.n_layers} "
+          f"layers, text prompts, M-RoPE at text positions): float32 "
+          f"{r32['steps']} steps, max |decode - prefill| "
+          f"{r32['max |decode - prefill| logit']:.3e} (bar {r32['bar']}), "
+          f"{r32['tokens excused as near-ties']} tokens at near-ties, "
+          f"{r32['decode ms per step']:.3f} ms per step; bf16 relative "
+          f"distance "
+          f"{r['relative distance ||decode - prefill|| / ||prefill||']:.3e}"
+          f" (bar {r['bar']}), max |Δ| "
+          f"{r['max |decode - prefill| logit']:.3e} of max |logit| "
+          f"{r['max |logit|']:.3f}, {r['tokens excused as near-ties']} "
+          f"tokens at near-ties, {r['decode ms per step']:.3f} ms per step, "
+          f"{r['decode tokens/s']:.1f} tokens/s; one bf16 step under the "
+          f"profiler: {prof['span_ms']:.3f} ms span, busy "
+          f"{ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])} [{card_line()}]")
+    return out
+
+
+def vlm_train(ops, xbk) -> dict:
+    """Step 23 (c): the config at full width and VLM_TRAIN_LAYERS layer
+    trains on VLM_BATCH x PREFILL_LEN tokens with the 256 patches merged,
+    bf16 compute, remat "full", no profile: VLM_TRAIN_STEPS adamw steps (2
+    flash launches a step, the forward's and its recomputation), then
+    crossbar kernel mode with pulse_sgd, VLM_XB_STEPS steps (a step: 7
+    projections a layer, run twice under remat: 14 ``crossbar_fwd``, 7
+    ``crossbar_bwd`` and 7 ``crossbar_dw``; the head, the embedding and
+    the patch merger stay plain), layer 0's launches of the first step
+    (kept in host memory while the steps run) held against their plain
+    versions within XB_BAR of sum_k |x_k||w_k| after the steps' memory is
+    freed, and re-timed on their operands over 3 calls (kernel, plain,
+    ``torch.bmm``, the bound; no device-time graphs at tens of ms a
+    launch); conductances in [0, 4]."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.checkpoint import _walk
+    cfg = get_config(VLM_ARCH, n_layers=VLM_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def batches(steps):
+        return [vlm_batch(cfg, VLM_BATCH, PREFILL_LEN, gen, labels=True)
+                for _ in range(steps)]
+
+    std = train_run(ops, cfg, "adamw", batches(VLM_TRAIN_STEPS),
+                    2 * cfg.n_layers * VLM_TRAIN_STEPS, profile=False)
+    del std["params"], std["rec"]
+    if any(std["launches"].values()):
+        raise AssertionError(f"standard training launched "
+                             f"{std['launches']}")
+    gc_collect()
+    xcfg = cfg.replace(crossbar=True, xbar_use_kernel=True)
+    xb = train_run(ops, xcfg, "pulse_sgd", batches(VLM_XB_STEPS),
+                   2 * cfg.n_layers * VLM_XB_STEPS, XB_PROJECTIONS, xbk,
+                   profile=False, offload=True)
+    per_pass = XB_PROJECTIONS * xcfg.n_layers
+    want = {"crossbar_fwd": 2 * per_pass * VLM_XB_STEPS,
+            "crossbar_bwd": per_pass * VLM_XB_STEPS,
+            "crossbar_dw": per_pass * VLM_XB_STEPS}
+    if xb["launches"] != want:
+        raise AssertionError(f"crossbar kernel mode ran {xb['launches']}, "
+                             f"expected {want}")
+    g = [t for path, t in _walk(xb.pop("params"))
+         if any(k in ("g_plus", "g_minus") for k in path)]
+    lo, hi = min(float(t.min()) for t in g), max(float(t.max()) for t in g)
+    if lo < 0.0 or hi > xcfg.xbar_w_max:
+        raise AssertionError(f"conductances in [{lo}, {hi}], outside "
+                             f"[0, {xcfg.xbar_w_max}]")
+    del g
+    gc_collect()
+    rec = xb.pop("rec")
+    t0 = time.perf_counter()
+    rec.to_device()
+    xb["layer-0 launches vs plain, max |err| / sum |x||w|"] = \
+        check_layer0_launches(xbk, rec)
+    xb["rows"] = lm_crossbar_rows(xbk, rec, VLM_ARCH, iters=3, device=False)
+    xb["s"]["layer-0 checks and rows"] = time.perf_counter() - t0
+    del rec
+    xb["projections a forward"] = per_pass
+    xb["conductance range"] = [lo, hi]
+    for what, r in (("standard, adamw", std),
+                    ("crossbar kernel mode, pulse_sgd", xb)):
+        print(f"vlm training ({VLM_ARCH} full width, {cfg.n_layers} layer, "
+              f"{cfg.param_count():,} parameters, bf16 compute, remat full, "
+              f"{VLM_BATCH} x {PREFILL_LEN} tokens with {cfg.vlm_patches} "
+              f"patches, {what}): launches {json.dumps(r['launches'])}, "
+              f"{r['flash']} flash; losses "
+              f"{[round(v, 4) for v in r['losses']]}; step "
+              f"{r['step ms']:.3f} ms, {r['tokens/s']:.0f} tokens/s, peak "
+              f"{r['peak GB']:.2f} GB (not profiled) [{card_line()}]; "
+              f"seconds {json.dumps(r['s'])}")
+    print(f"  layer 0's launches vs plain (max |err| / sum |x||w|, bar "
+          f"{XB_BAR}): " + json.dumps(
+              xb["layer-0 launches vs plain, max |err| / sum |x||w|"])
+          + f"; conductances in [{lo}, {hi}]")
+    print_crossbar_rows(xb["rows"])
+    return {"standard": std, "crossbar": xb}
+
+
+def vlm_reduced(ops) -> dict:
+    """Step 23 (d), serving: the reduced config in float32 compute,
+    ``prefill_fn`` on 2 x 64 tokens with its 8 patch embeddings merged (2
+    simt launches) and 8 decode steps over a float32 cache, on the card
+    and on the CPU from the same parameters and inputs, each output within
+    CARD_VS_CPU_BAR of its largest |value|."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.dist.sharding import tree_map
+    from repro_torch.models import build_model
+    cfg = get_reduced_config(VLM_ARCH, compute_dtype="float32")
+    p0 = build_model(cfg, "cpu").init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    batch0 = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                      generator=gen, dtype=torch.int32),
+              "patch_embeds": uniform_patches(cfg, 2, gen, "cpu")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), p0)
+        batch = {k: v.to(dev) for k, v in batch0.items()}
+        zero_lm_counts(ops)
+        pre = model.prefill_fn(params, batch)
+        if dev == "cuda":
+            check_flash_counts(ops, cfg.n_layers, "simt",
+                               f"reduced {VLM_ARCH} prefill")
+        cache = model.init_cache(2, 16, torch.float32)
+        tok, dec = batch["tokens"], []
+        for step in range(8):
+            logits, cache = model.decode_fn(
+                params, cache, {"tokens": tok[:, step:step + 1],
+                                "length": step})
+            dec.append(logits)
+        runs[dev] = (pre.cpu(), torch.cat(dec, dim=1).cpu(),
+                     cache["stack"]["b0_attn"]["k"].cpu())
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(runs["cuda"], runs["cpu"]))
+    if not rel <= CARD_VS_CPU_BAR:
+        raise AssertionError(f"reduced {VLM_ARCH} float32: card vs CPU "
+                             f"{rel}")
+    out = {"card vs cpu, of each output's largest (prefill, decode, k "
+           "cache)": rel,
+           "flash launches (prefill, card)": cfg.n_layers}
+    print(f"vlm reduced serving ({VLM_ARCH} reduced, float32, 2 x 64 "
+          f"prefill with {cfg.vlm_patches} patches and 8 decode steps, card "
+          f"vs CPU): " + json.dumps(out))
+    return out
+
+
+def vlm_path(ops, xbk) -> dict:
+    """The VLM family (module docstring, step 23)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import BatchedServer
+    t0 = time.perf_counter()
+    model = build_model(get_config(VLM_ARCH, n_layers=VLM_LAYERS), "cuda")
+    model32 = build_model(get_config(VLM_ARCH, n_layers=VLM_LAYERS,
+                                     compute_dtype="float32"), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out = {"init s": time.perf_counter() - t0,
+           "parameters": model.cfg.param_count(), "part s": {}}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        out["part s"][name] = time.perf_counter() - t
+
+    part("prefill", vlm_prefill, ops, model, params)
+    part("decode", vlm_decode, ops, model, model32, params, BatchedServer)
+    del params
+    gc_collect()
+    part("train", vlm_train, ops, xbk)
+    gc_collect()
+    part("reduced serving", vlm_reduced, ops)
+    part("reduced training", lm_train_card_vs_cpu, ops, VLM_ARCH)
+    out["s"] = time.perf_counter() - t0
+    print(f"vlm path parts (s): " + json.dumps(out["part s"]))
+    return out
+
+
 def profiled_kernels(fn, reps: int = 1):
     """The device events of ``reps`` calls of ``fn`` under
     ``torch.profiler`` as ``key_averages`` rows, and the span of the calls
@@ -6182,6 +6605,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fx_err, fx_rows = flash_cross_phase(fak, gen, report)
     phase_s["flash cross phase"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fv_err, fv_rows = flash_vlm_phase(fak, gen, report)
+    phase_s["flash vlm phase"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     # -- eager recognition path: the counts start at 0 and are read after
@@ -6433,6 +6859,23 @@ def main() -> int:
                       if isinstance(out, dict) else out)
                for part, out in encdec.items()}))
 
+    # -- the VLM family (step 23): step 22's memory freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the vlm path: {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated")
+    vlm = vlm_path(ops, xbk)
+    phase_s["vlm path"] = time.perf_counter() - t0
+    print(f"vlm path [{card}], {phase_s['vlm path']:.1f} s: " + json.dumps(
+        {part: ({k: (v if not isinstance(v, dict) else
+                     {kk: vv for kk, vv in v.items()
+                      if "profile" not in kk and kk != "rows"})
+                 for k, v in out.items()
+                 if "profile" not in k and k != "rows"}
+                if isinstance(out, dict) else out)
+         for part, out in vlm.items()}))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -6517,9 +6960,19 @@ def main() -> int:
                f"{ENCDEC_ARCH} reduced, card vs CPU":
                encdec["reduced training"]["launches"][name]}
         for name in XB_NAMES}
+    # the VLM path's: the full-width kernel-mode steps (step 23 (c)) and
+    # the reduced kernel-mode step held against the CPU (step 23 (d))
+    vlm_counted = {
+        name: {f"{VLM_ARCH} crossbar kernel mode (full width, "
+               f"{VLM_TRAIN_LAYERS} layer)":
+               vlm["train"]["crossbar"]["launches"][name],
+               f"{VLM_ARCH} reduced, card vs CPU":
+               vlm["reduced training"]["launches"][name]}
+        for name in XB_NAMES}
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
                         *lm_counted.items(), *moe_counted.items(),
-                        *ssm_counted.items(), *encdec_counted.items()):
+                        *ssm_counted.items(), *encdec_counted.items(),
+                        *vlm_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -6612,6 +7065,17 @@ def main() -> int:
                                    "bound_by", "tile")}
                 for r in encdec["train"]["crossbar"]["rows"]
                 if r["kernel"] == name]
+        if name in vlm_counted:
+            entries[-1]["launches_vlm"] = vlm_counted[name]
+            entries[-1]["vlm_train_layer0_rel_err"] = vlm["train"][
+                "crossbar"]["layer-0 launches vs plain, max |err| / sum "
+                "|x||w|"][name]
+            entries[-1]["vlm_shapes"] = [
+                {k: r[k] for k in ("M", "K", "N", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "tile")}
+                for r in vlm["train"]["crossbar"]["rows"]
+                if r["kernel"] == name]
         if name in lm_counted:
             entries[-1]["launches_lm_train"] = lm_counted[name]
             entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]
@@ -6703,6 +7167,21 @@ def main() -> int:
                 "flash launches (prefill, card)"],
             "reduced training steps vs CPU": encdec["reduced training"][
                 "flash_attention launches"]}}
+    # the VLM path's launches (step 23): the bf16 prefill at the cut
+    # depth, the training steps; on the fp32 kernel the reduced float32
+    # prefill and training steps held against the CPU
+    vlm_flash = {
+        "flash_attention": {
+            f"{VLM_ARCH} prefill ({VLM_LAYERS} layers)": vlm["prefill"][
+                "flash_attention launches"],
+            "standard training steps": vlm["train"]["standard"]["flash"],
+            "crossbar kernel mode steps": vlm["train"]["crossbar"][
+                "flash"]},
+        "flash_attention_simt": {
+            "reduced prefill (float32)": vlm["reduced serving"][
+                "flash launches (prefill, card)"],
+            "reduced training steps vs CPU": vlm["reduced training"][
+                "flash_attention launches"]}}
     bwd_yard = lm_train["standard"]["attention backward yardsticks"]
 
     def fw_row(dt, case):
@@ -6722,7 +7201,9 @@ def main() -> int:
              "launch a layer, all wgmma/chunked), and the encoder-decoder "
              "path (launches_encdec: seamless-m4t-medium's prefill, 36, "
              "the encode of its served cross cache, 12, and its training "
-             "steps, 72 a step, all wgmma/chunked)"),
+             "steps, 72 a step, all wgmma/chunked), and the VLM path "
+             "(launches_vlm: qwen2-vl-72b's prefill at 8 layers, 8, and "
+             "its 1-layer training steps, 2 a step, all wgmma/chunked)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
@@ -6733,12 +7214,16 @@ def main() -> int:
              "float32 prefills and training steps held against the CPU "
              "(launches_moe) and the encoder-decoder path's float32 "
              "encode, reduced prefill and training steps "
-             "(launches_encdec)")):
+             "(launches_encdec) and the VLM path's reduced float32 "
+             "prefill and training steps (launches_vlm)")):
         fa = fa_row(dt, "chunked")
         launches += sum(lm_flash[name].values())
         launches += sum(hybrid_flash[name].values())
         launches += sum(moe_flash[name].values())
         launches += sum(encdec_flash[name].values())
+        launches += sum(vlm_flash[name].values())
+        qwen2_vl = next(r for r in fv_rows if r["dtype"] == dt
+                        and r["semantics"] == "chunked")
         seamless = next(r for r in fx_rows if r["dtype"] == dt
                         and r["case"].startswith("seamless")
                         and r["semantics"] == "chunked")
@@ -6755,7 +7240,7 @@ def main() -> int:
             "max_abs_err": max(max(r["max_abs_err"],
                                    r.get("max_abs_err, 64-key plain", 0.0))
                                for r in fa_rows + fw_rows + fx_rows
-                               if r["dtype"] == dt),
+                               + fv_rows if r["dtype"] == dt),
             "ms": fa["ms"], "plain_ms": fa["plain_ms"],
             "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
             "library_ms": fa["library_ms"],
@@ -6766,6 +7251,10 @@ def main() -> int:
             "launches_ssm": {f"{SSM_ARCH} prefill, decode and training "
                              f"(attention-free)": 0},
             "launches_encdec": encdec_flash[name],
+            "launches_vlm": vlm_flash[name],
+            "vlm_prefill_shape": {k: qwen2_vl[k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "registers", "spill_stores")},
             "encdec_non_causal": {k: seamless[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},
@@ -6805,7 +7294,9 @@ def main() -> int:
                      f"encdec_non_causal: seamless's bidirectional and "
                      f"cross-attention shape (4 x 2048 on 2048, 16 on 16, "
                      f"hd 64, non-causal, chunked); non_causal_cases: the "
-                     f"flash cross phase's rows"
+                     f"flash cross phase's rows; vlm_prefill_shape: "
+                     f"qwen2-vl's prefill shape (2 x 2048, 64 on 8, hd "
+                     f"128, causal, chunked)"
                      + ("; lm_train_backward_bound_ms: five products at "
                         "the bf16 peak; lm_train_backward_library_ms: "
                         "SDPA's backward at (4, 2048, 14 on 2, hd 64)"

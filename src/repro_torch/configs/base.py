@@ -7,10 +7,11 @@ only the architectures the port can build: the four dense (``attn``-only)
 configs, the hybrid recurrentgemma-9b (``rec`` RG-LRU blocks and
 ``local`` windowed attention), the MoE family (moonshot-v1-16b-a3b and
 qwen3-moe-30b-a3b: ``moe`` blocks after an optional dense prefix) and
-the SSM mamba2-130m (``ssd`` blocks, attention-free) and the
+the SSM mamba2-130m (``ssd`` blocks, attention-free), the
 encoder-decoder seamless-m4t-medium (``models/encdec.py``: bidirectional
-encoder, decoder with cross-attention).  The VLM config waits for M-RoPE
-and its patch stub (ROADMAP Queue 1 item 10).  ``reduced()`` of each config module yields the CPU test
+encoder, decoder with cross-attention) and the VLM qwen2-vl-72b (M-RoPE,
+the patch merger over stub patch embeddings): every architecture of the
+reference.  ``reduced()`` of each config module yields the CPU test
 variant (same topology, tiny widths).
 """
 from __future__ import annotations
@@ -186,6 +187,7 @@ ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
 }
 
 

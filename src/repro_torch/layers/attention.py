@@ -29,8 +29,8 @@ the cross cache, with no RoPE on either side.  One query attends every
 source slot through ``decode_attention``; a longer query goes through
 ``chunked_attention`` non-causal, Sq and Skv apart.
 
-Not ported (ROADMAP Queue 1 item 10): M-RoPE.  It raises
-``NotImplementedError``.
+RoPE is M-RoPE (``rope.apply_mrope``) where the config has
+``mrope_sections``, its positions then (B, L, 3).
 
 KV caches are updated in place (the port's form of the reference's
 donated cache); nothing inside a step is read back to the host.
@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.layers.linear import XbarMode, dense_apply, dense_spec
-from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 10)"
@@ -91,7 +91,8 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 def _rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor
           ) -> torch.Tensor:
     if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {NOT_PORTED}")
+        return apply_mrope(x, positions, cfg.mrope_sections,
+                           theta=cfg.rope_theta)
     return apply_rope(x, positions, theta=cfg.rope_theta)
 
 

@@ -1,5 +1,12 @@
-"""Rotary position embeddings (port of ``repro/layers/rope.py``;
-M-RoPE waits for the VLM slice, ROADMAP Queue 1 item 10).
+"""Rotary position embeddings (port of ``repro/layers/rope.py``),
+including M-RoPE (Qwen2-VL's 3-section rope).
+
+``apply_rope(x, positions)`` rotates the head_dim of ``x`` (batch, seq,
+heads, head_dim) by per-token positions.  ``apply_mrope`` splits the
+frequency bands into (t, h, w) sections, each rotated by its own position
+stream of ``positions_3d`` (batch, seq, 3).  The model feeds it text
+positions only (``text_mrope_positions``: the three streams equal), patch
+tokens included, as the reference's model does.
 
 Angles and the rotation are computed in fp32, as the reference does: a
 bf16 ``x`` is widened to fp32 for the rotation and the result cast back.
@@ -30,3 +37,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections: tuple[int, int, int], *,
+                theta: float = 10000.0) -> torch.Tensor:
+    """M-RoPE: positions_3d (batch, seq, 3) = (t, h, w) position streams;
+    ``sections`` gives rotary dims (halved) per stream, summing to
+    head_dim//2."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    exponents = torch.arange(0, d, 2, dtype=torch.float32,
+                             device=x.device) / d
+    # theta ** e rounded once to fp32, as XLA's pow rounds it (torch's fp32
+    # pow is an ulp off in a few bands: hd 128 at theta 1e6, band 37)
+    freqs = 1.0 / (theta ** exponents.double()).float()
+    # which stream drives each frequency band: [t]*s0 + [h]*s1 + [w]*s2
+    stream = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, s in enumerate(sections)])
+    pos = positions_3d.to(torch.float32)[..., stream]    # (b, s, d/2)
+    ang = pos * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """Text tokens: all three streams equal the 1-D position (a view, no
+    copy)."""
+    return positions[..., None].expand(tuple(positions.shape) + (3,))

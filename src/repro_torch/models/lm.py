@@ -41,8 +41,14 @@ Block kinds:
 
 In bf16 compute an ssd block's parameters reach ``ssd_apply`` rounded to
 bf16 by the period's cast (``a_log``, ``dt_bias`` and ``conv_w``
-included), and it widens them, as the reference's.  VLM patches raise
-``NotImplementedError`` (ROADMAP Queue 1 item 10).
+included), and it widens them, as the reference's.
+
+A VLM config (``vlm_patches`` > 0) has a ``patch_merger``: a plain dense
+layer (no bias, and no crossbar even in crossbar mode, as the
+reference's) that ``embed_inputs`` applies to a batch's ``patch_embeds``
+(B, P, d_model) and writes over token positions 0 .. P-1, out of place
+(the reference's ``dynamic_update_slice``); a batch without them (decode,
+the ``TokenStream`` CLI) merges nothing.
 """
 from __future__ import annotations
 
@@ -63,7 +69,7 @@ from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import rglru as rglru_mod
 from repro_torch.layers import ssd as ssd_mod
-from repro_torch.layers.linear import XbarMode
+from repro_torch.layers.linear import XbarMode, dense_apply, dense_spec
 from repro_torch.layers.norms import (layernorm_apply, layernorm_spec,
                                       rmsnorm_apply, rmsnorm_spec)
 
@@ -187,8 +193,6 @@ def _period_spec(cfg: ModelConfig, xbar) -> dict:
 
 
 def lm_spec(cfg: ModelConfig) -> dict:
-    if cfg.vlm_patches:
-        raise NotImplementedError(f"VLM patches are {NOT_PORTED}")
     xbar = XbarMode.from_config(cfg)
     lay = stack_layout(cfg)
     spec: dict[str, Any] = {
@@ -202,6 +206,9 @@ def lm_spec(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = emb_mod.lm_head_spec(cfg.d_model, cfg.padded_vocab,
                                                xbar)
+    if cfg.vlm_patches:
+        spec["patch_merger"] = dense_spec(cfg.d_model, cfg.d_model,
+                                          ("fsdp", None))
     return spec
 
 
@@ -255,10 +262,13 @@ def _remat_wrap(cfg: ModelConfig, fn: Callable) -> Callable:
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    if cfg.vlm_patches:
-        raise NotImplementedError(f"VLM patches are {NOT_PORTED}")
-    return emb_mod.embed_apply(params["embed"], batch["tokens"],
-                               compute_dtype)
+    x = emb_mod.embed_apply(params["embed"], batch["tokens"], compute_dtype)
+    if cfg.vlm_patches and "patch_embeds" in batch:
+        patches = dense_apply(params["patch_merger"], batch["patch_embeds"],
+                              compute_dtype=compute_dtype)
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]],
+                      dim=1)
+    return x
 
 
 def _unstack(tree: Any) -> list[Any]:

@@ -39,6 +39,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.layers.embedding import cross_entropy, embed_apply
+from repro_torch.layers.rope import text_mrope_positions
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
 
@@ -73,12 +74,14 @@ def _positions_for(cfg: ModelConfig, B: int, L: int, *,
                    device: torch.device,
                    start: torch.Tensor | int = 0) -> torch.Tensor:
     """(B, L) positions start .. start + L - 1 (``start`` an int or a 0-d
-    tensor on ``device``; no host read either way)."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"M-RoPE positions are {lm_mod.NOT_PORTED}")
+    tensor on ``device``; no host read either way); an M-RoPE config's
+    (B, L, 3), the three streams equal (patch tokens too, as the
+    reference's)."""
     pos = torch.arange(L, device=device)[None, :] + start
-    return pos.expand(B, L)
+    pos = pos.expand(B, L)
+    if cfg.mrope_sections is not None:
+        return text_mrope_positions(pos)
+    return pos
 
 
 def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
@@ -122,10 +125,13 @@ def _build_lm(cfg: ModelConfig, device: torch.device) -> Model:
 
     def input_specs(kind: str, seq_len: int, global_batch: int):
         tok = ((global_batch, seq_len), torch.int32)
+        patches = ({"patch_embeds": ((global_batch, cfg.vlm_patches,
+                                      cfg.d_model), torch.float32)}
+                   if cfg.vlm_patches else {})
         if kind == "train":
-            return {"tokens": tok, "labels": tok}
+            return {"tokens": tok, "labels": tok, **patches}
         if kind == "prefill":
-            return {"tokens": tok}
+            return {"tokens": tok, **patches}
         # decode: one token, cache of seq_len capacity; shapes from a cache
         # built on the meta device (nothing allocated)
         batch = {"tokens": ((global_batch, 1), torch.int32),

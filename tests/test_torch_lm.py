@@ -104,16 +104,17 @@ def test_configs_and_param_count_equal_the_reference(arch):
 def test_registry_lists_only_what_the_port_builds():
     assert sorted(tcfg.list_archs()) == sorted(
         DENSE + ["recurrentgemma-9b", "moonshot-v1-16b-a3b",
-                 "qwen3-moe-30b-a3b", "mamba2-130m", "seamless-m4t-medium"])
+                 "qwen3-moe-30b-a3b", "mamba2-130m", "seamless-m4t-medium",
+                 "qwen2-vl-72b"])
     assert tcfg.SHAPES == jcfg.SHAPES
     cfg = tcfg.get_config("qwen2-0.5b")
     assert tcfg.shape_applicable(cfg, "long_500k")[0] is False
     assert cfg.padded_vocab - cfg.vocab_size == 128
     assert cfg.param_count() == 494147456
     assert tcfg.get_config("seamless-m4t-medium").param_count() == 878309376
-    # the only reference architecture the port does not build yet
-    assert set(jcfg.list_archs()) - set(tcfg.list_archs()) == {
-        "qwen2-vl-72b"}
+    assert tcfg.get_config("qwen2-vl-72b").param_count() == 72773312512
+    # the port builds every reference architecture
+    assert set(jcfg.list_archs()) - set(tcfg.list_archs()) == set()
 
 
 def test_unported_kinds_and_families_raise():
@@ -139,8 +140,16 @@ def test_unported_kinds_and_families_raise():
     zeros = torch.zeros(1, 8, dtype=torch.int32)
     _, metrics = tm.loss_fn(tp, {"tokens": zeros, "labels": zeros})
     assert float(metrics["aux"].detach()) > 0
+    # VLM patches are ported (tests/test_torch_vlm.py): the merger is a
+    # plain dense layer; an unknown block kind still raises
+    vm = tbuild(cfg.replace(vlm_patches=4), "cpu")
+    vp = vm.init(torch.Generator().manual_seed(0))
+    assert "patch_merger" in vp and set(vp["patch_merger"]) == {"w"}
+    loss, _ = vm.loss_fn(vp, {"tokens": zeros, "labels": zeros,
+                              "patch_embeds": torch.ones(1, 4, 64)})
+    assert bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tbuild(cfg.replace(vlm_patches=4), "cpu")
+        tbuild(cfg.replace(block_pattern=("attn", "conv")), "cpu")
     # the encoder-decoder family builds (tests/test_torch_encdec.py holds
     # it against the reference): an encoder and a decoder stack, a loss
     # without an aux term

@@ -389,9 +389,10 @@ def test_attention_apply_decode(cache_dtype):
 
 
 def test_unported_attention_raises():
-    """Windows (tests/test_torch_hybrid.py), bidirectional prefill and
-    cross-attention over a cache (tests/test_torch_encdec.py) are ported
-    and match the reference; M-RoPE still raises."""
+    """Windows (tests/test_torch_hybrid.py), bidirectional prefill,
+    cross-attention over a cache (tests/test_torch_encdec.py) and M-RoPE
+    (tests/test_torch_vlm.py) are ported and match the reference; M-RoPE
+    sections that do not sum to head_dim / 2 fail on both sides."""
     jp, tp = _attn_params()
     x = _randn((1, 4, 64), 30)
     jx, tx = _pair(x, "float32")
@@ -414,7 +415,19 @@ def test_unported_attention_raises():
             positions=torch.from_numpy(pos), compute_dtype=torch.float32,
             **tkw)
         assert_close(got, want, TOL, (causal, list(tkw)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    pos3 = np.random.default_rng(32).integers(0, 64, (1, 4, 3))
+    want, _ = J["attn"](jp, jx, cfg=jattn.AttnConfig(
+        **JACFG, mrope_sections=(2, 3, 3)), positions=jnp.asarray(pos3),
+        compute_dtype=jnp.float32)
+    got, _ = tattn.attention_apply(tp, tx, tattn.AttnConfig(
+        **ACFG, mrope_sections=(2, 3, 3)), positions=torch.from_numpy(pos3),
+        compute_dtype=torch.float32)
+    assert_close(got, want, TOL, "mrope")
+    with pytest.raises(AssertionError):
+        J["attn"](jp, jx, cfg=jattn.AttnConfig(
+            **JACFG, mrope_sections=(2, 3, 2)), positions=jnp.asarray(pos3),
+            compute_dtype=jnp.float32)
+    with pytest.raises(AssertionError):
         tattn.attention_apply(tp, tx, tattn.AttnConfig(
-            **ACFG, mrope_sections=(2, 3, 3)),
-            positions=torch.from_numpy(pos))
+            **ACFG, mrope_sections=(2, 3, 2)),
+            positions=torch.from_numpy(pos3))
