@@ -427,12 +427,36 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     the flash vlm phase, run among the flash phases, holds both sources
     at qwen2-vl's prefill shape (2 x 2048, 64 on 8, hd 128, causal) and
     times them beside SDPA and the bound;
-24. prints the wave and training-step times (CUDA events), compiled beside
+24. ``dist/`` on one card at qwen2-0.5b's full width (494,147,456 fp32
+    parameters from ``init`` at seed 0, after step 23's memory is freed;
+    ``TokenStream(151936, 2048, 4, seed=0)``, bf16 compute, remat
+    "full"): (a) ``dp_train_step_fn`` on ``make_host_mesh()`` (one
+    shard), compression "none", 2 adamw steps at 4 x 2048 on the
+    launcher's schedule, its parameters, adamw state and losses equal to
+    ``make_train_step``'s bit for bit (48 flash launches a step each);
+    (b) compression "int8" on ``make_host_mesh(shape=(4, 1))`` folded onto
+    the card, ``adamw(3e-3)``, 4 steps of four 1 x 2048 shards (192 flash
+    launches a step), the last loss below the first (the statement of the
+    reference's ``test_dp_train_step_with_compression_decreases_loss``);
+    each step's ms and tokens/s beside (a)'s, the compression's ms by
+    CUDA events, a profile of each with the idle share; (c)
+    ``pipeline_apply`` over a 4-stage ("pipe",) mesh, a stage 6 decoder
+    layers in bf16 run one (1, 2048, 896) microbatch at a time, 8
+    microbatches of embedded tokens: (8 + 4 - 1) x 24 = 264 flash
+    launches, against 192 for ``serial_reference``, whose result it
+    equals bit for bit; both timed (CUDA events), the pipeline profiled;
+    (d) ``Trainer(mesh=make_host_mesh())`` 2 steps equal to ``Trainer()``'s
+    bit for bit (parameters, adamw state, losses), its checkpoint at step
+    2 restored by a fresh meshed Trainer onto the shardings (every leaf on
+    the card) and its step 3 equal to the uninterrupted run's bit for
+    bit; (e) ``python -m repro_torch.launch.train --arch qwen2-0.5b
+    --reduced --mesh host`` runs 4 steps on the card;
+25. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18-23
+    by the counts its capture recorded) — all taken before steps 18-24
     run, which come last of the paths, so that their large allocations
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
@@ -442,9 +466,9 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     ``launches_ssm``, ``launches_encdec`` and ``launches_vlm``, with
     mamba2's, seamless's and qwen2-vl's projection shapes in
     ``ssm_shapes``, ``encdec_shapes`` and ``vlm_shapes``; the flash
-    kernels' steps 18-23 in ``launches_lm_train``, ``launches_hybrid``,
-    ``launches_moe``, ``launches_ssm`` (0), ``launches_encdec`` and
-    ``launches_vlm``, with the local layer's, hd 256's, seamless's
+    kernels' steps 18-24 in ``launches_lm_train``, ``launches_hybrid``,
+    ``launches_moe``, ``launches_ssm`` (0), ``launches_encdec``,
+    ``launches_vlm`` and ``launches_dist``, with the local layer's, hd 256's, seamless's
     non-causal and qwen2-vl's prefill timings, the cross phase's rows and
     the backward's yardsticks beside; ``crossbar_dw`` carries
     ``farm_step_local_dw``), and last
@@ -6434,11 +6458,363 @@ def vlm_path(ops, xbk) -> dict:
     return out
 
 
-def profiled_kernels(fn, reps: int = 1):
+DIST_ARCH = "qwen2-0.5b"     # the dense config step 18 trains, full width
+DIST_STEPS = 2               # (a) and (d): steps held bit for bit
+DIST_INT8_STEPS = 4          # (b): the int8 steps whose loss must fall
+DIST_INT8_SHAPE = (4, 1)     # (b): make_host_mesh(shape=) folded onto the card
+PIPE_STAGES, PIPE_MICRO = 4, 8   # (c): 4 stages of 6 layers, 8 x (1, 2048)
+
+
+class CompressionTimer:
+    """Wraps ``dist.collectives.compressed_grad_mean`` while a step runs and
+    times each call by CUDA events (restored on exit)."""
+
+    def __init__(self):
+        from repro_torch.dist import collectives as coll
+        self.coll, self.orig, self.events = coll, coll.compressed_grad_mean, []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        self.coll.compressed_grad_mean = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.coll.compressed_grad_mean = self.orig
+        return False
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def timed_steps(step, state: dict, batches: list[dict], *extra) -> list:
+    """Run ``step(params, opt_state, batch, i, *extra)`` over ``batches``,
+    writing ``state`` in place; each step's ms by CUDA events and its
+    third output."""
+    out = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state["params"], state["opt"], r = step(
+            state["params"], state["opt"], batch, i, *extra)
+        end.record()
+        end.synchronize()
+        out.append((start.elapsed_time(end), r))
+    return out
+
+
+def trees_equal(a, b, what: str) -> None:
+    same, diff = params_equal(a, b)
+    if not same:
+        raise AssertionError(f"{what}: differ by up to {diff}")
+
+
+def dist_dp(ops, model, stream) -> dict:
+    """Step 24 (a) and (b): ``dp_train_step_fn`` at full width."""
+    from repro_torch.dist.collectives import dp_train_step_fn
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+    cfg = model.cfg
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    per_pass = 2 * cfg.n_layers          # a forward and its recomputation
+    gen = torch.Generator(device="cuda")
+
+    def fresh(opt) -> dict:
+        params = model.init(gen.manual_seed(SEED))
+        return {"params": params, "opt": opt.init(params)}
+
+    batches = [{k: v.cuda() for k, v in stream.batch_at(s).items()}
+               for s in range(DIST_INT8_STEPS)]
+    t0 = time.perf_counter()
+    # (a) one shard, mode "none", against make_train_step
+    host = make_host_mesh()
+    if host.size != 1:
+        raise AssertionError(f"make_host_mesh() is {host.shape}, not one "
+                             f"device")
+    opt = launch_train_config(cfg, "adamw", DIST_STEPS)
+    ref = fresh(opt)
+    zero_flash_counts(ops)
+    ref_runs = timed_steps(make_train_step(model, opt), ref,
+                           batches[:DIST_STEPS])
+    dp = fresh(opt)
+    dp_step = dp_train_step_fn(model.loss_fn, opt, host, compression="none")
+    with CompressionTimer() as ct:
+        dp_runs = timed_steps(dp_step, dp, batches[:DIST_STEPS])
+    check_flash_counts(ops, 2 * per_pass * DIST_STEPS, "wgmma",
+                       "(a): the train step's and the dp step's steps")
+    trees_equal(dp["params"], ref["params"], "(a) dp step params vs "
+                "make_train_step's")
+    trees_equal(dp["opt"], ref["opt"], "(a) dp step adamw state vs "
+                "make_train_step's")
+    losses = [float(r) for _, r in dp_runs]
+    if losses != [float(r["loss"]) for _, r in ref_runs]:
+        raise AssertionError(f"(a) dp losses {losses} differ")
+    a = {"mesh": host.shape, "losses": losses,
+         "step ms (dp, second step)": dp_runs[-1][0],
+         "step ms (make_train_step, second step)": ref_runs[-1][0],
+         "compression ms (none)": ct.ms()[-1],
+         "flash launches": 2 * per_pass * DIST_STEPS,
+         "params and adamw state bit for bit": True}
+    a["tokens/s (dp)"] = tokens / a["step ms (dp, second step)"] * 1e3
+    t = time.perf_counter()
+    a["profile"] = profile_device(
+        lambda: dp_step(dp["params"], dp["opt"], batches[0], 0), reps=1,
+        cpu=False)
+    a["profile s"] = time.perf_counter() - t
+    a["s"] = time.perf_counter() - t0
+    del ref, dp
+    gc_collect()
+    t0 = time.perf_counter()
+    # (b) mode "int8" on (4, 1) folded onto the card
+    mesh = make_host_mesh(shape=DIST_INT8_SHAPE)
+    opt = adamw(3e-3)
+    st = fresh(opt)
+    step = dp_train_step_fn(model.loss_fn, opt, mesh, compression="int8")
+    noise = torch.Generator(device="cuda").manual_seed(SEED)
+    zero_flash_counts(ops)
+    with CompressionTimer() as ct:
+        runs = timed_steps(step, st, batches, noise)
+    n_flash = mesh.size * per_pass * DIST_INT8_STEPS
+    check_flash_counts(ops, n_flash, "wgmma", "(b): the int8 dp steps")
+    losses = [float(r) for _, r in runs]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"(b) int8 dp losses {losses}: the last is "
+                             f"not below the first")
+    step_ms = [ms for ms, _ in runs]
+    b = {"mesh": mesh.shape, "losses": losses, "step ms": step_ms,
+         "step ms (steps 2..)": sum(step_ms[1:]) / len(step_ms[1:]),
+         "compression ms": ct.ms(), "flash launches": n_flash}
+    b["compression ms (steps 2..)"] = sum(b["compression ms"][1:]) / len(
+        b["compression ms"][1:])
+    b["tokens/s"] = tokens / b["step ms (steps 2..)"] * 1e3
+    t = time.perf_counter()
+    b["profile"] = profile_device(
+        lambda: step(st["params"], st["opt"], batches[0], 0, noise), reps=1,
+        cpu=False)
+    b["profile s"] = time.perf_counter() - t
+    b["s"] = time.perf_counter() - t0
+    del st
+    gc_collect()
+    for what, r, ms in (("(a) 1 shard, none", a,
+                         a["step ms (dp, second step)"]),
+                        ("(b) 4 shards, int8", b, b["step ms (steps 2..)"])):
+        print(f"dist dp step {what} ({DIST_ARCH} full width, "
+              f"{TRAIN_BATCH} x {TRAIN_LEN} tokens, bf16, adamw): losses "
+              f"{[round(v, 4) for v in r['losses']]}; step {ms:.3f} ms, "
+              f"{tokens / ms * 1e3:.0f} tokens/s; profile span "
+              f"{r['profile']['span_ms']:.3f} ms, busy "
+              f"{ms3(r['profile']['device_busy_ms'])} ms, idle share "
+              f"{ms3(r['profile']['device_idle_share'])} [{card_line()}]")
+    print(f"  (a) make_train_step "
+          f"{a['step ms (make_train_step, second step)']:.3f} ms beside; "
+          f"params and adamw state bit for bit; compression (none) "
+          f"{a['compression ms (none)']:.3f} ms; (b) compression (int8, "
+          f"{mesh.size} shards) {b['compression ms (steps 2..)']:.3f} ms a "
+          f"step by CUDA events; seconds (a) {a['s']:.1f} (profile "
+          f"{a['profile s']:.1f}), (b) {b['s']:.1f} (profile "
+          f"{b['profile s']:.1f})")
+    return {"one shard": a, "int8": b}
+
+
+def dist_pipeline(ops, model, stream) -> dict:
+    """Step 24 (c): ``pipeline_apply`` of 6-layer qwen2-0.5b stages over a
+    4-stage ("pipe",) mesh, 8 microbatches of 1 x 2048, bf16."""
+    from repro_torch.dist.pipeline import pipeline_apply, serial_reference
+    from repro_torch.dist.sharding import Mesh, cast_for_compute, tree_map
+    from repro_torch.layers.linear import XbarMode
+    from repro_torch.models.lm import block_apply, embed_inputs
+    cfg = model.cfg
+    bf16 = torch.bfloat16
+    per_stage = cfg.n_layers // PIPE_STAGES
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    stages = tree_map(lambda a: a.reshape((PIPE_STAGES, per_stage)
+                                          + tuple(a.shape[1:])),
+                      params["stack"])
+    xbar = XbarMode.from_config(cfg)
+    positions = torch.arange(TRAIN_LEN, device="cuda")[None, :]
+
+    def stage(p, h):
+        """The stage's layers, one (1, 2048, d) microbatch at a time."""
+        if h.dim() == 4:
+            return torch.stack([stage(p, hi) for hi in h])
+        for i in range(per_stage):
+            pi = cast_for_compute(tree_map(lambda a: a[i], p), bf16)
+            h, _, _ = block_apply(cfg, "attn", pi["b0_attn"], h,
+                                  positions=positions, cache=None,
+                                  xbar=xbar, compute_dtype=bf16)
+        return h
+
+    with torch.no_grad():
+        tokens = torch.cat([stream.batch_at(s)["tokens"]
+                            for s in range(PIPE_MICRO // TRAIN_BATCH)])
+        x = embed_inputs(cfg, params, {"tokens": tokens.cuda()}, bf16)
+        x = x.reshape(PIPE_MICRO, 1, TRAIN_LEN, cfg.d_model)
+        mesh = Mesh((PIPE_STAGES,), ("pipe",), "cuda")
+        zero_flash_counts(ops)
+        got = pipeline_apply(stage, stages, x, mesh=mesh, axis_name="pipe")
+        n_pipe = (PIPE_MICRO + PIPE_STAGES - 1) * cfg.n_layers
+        check_flash_counts(ops, n_pipe, "wgmma", "(c) pipeline_apply")
+        zero_flash_counts(ops)
+        want = serial_reference(stage, stages, x)
+        n_serial = PIPE_MICRO * cfg.n_layers
+        check_flash_counts(ops, n_serial, "wgmma", "(c) serial_reference")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError("(c) pipeline output not finite")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"(c) pipeline_apply differs from serial_reference by up to "
+                f"{float((got.float() - want.float()).abs().max())}")
+        pipe_ms = cuda_ms(lambda: pipeline_apply(stage, stages, x, mesh=mesh,
+                                                 axis_name="pipe"),
+                          iters=2, warmup=0)
+        serial_ms = cuda_ms(lambda: serial_reference(stage, stages, x),
+                            iters=2, warmup=0)
+        prof = profile_device(lambda: pipeline_apply(
+            stage, stages, x, mesh=mesh, axis_name="pipe"), reps=1,
+            cpu=False)
+    out = {"stages": PIPE_STAGES, "layers a stage": per_stage,
+           "microbatches": PIPE_MICRO, "flash launches (pipeline)": n_pipe,
+           "flash launches (serial)": n_serial, "bit for bit": True,
+           "pipeline ms": pipe_ms, "serial ms": serial_ms,
+           "tokens/s (pipeline)": PIPE_MICRO * TRAIN_LEN / pipe_ms * 1e3,
+           "profile": prof}
+    print(f"dist pipeline ({DIST_ARCH}: {PIPE_STAGES} stages of {per_stage} "
+          f"layers, {PIPE_MICRO} microbatches of 1 x {TRAIN_LEN}, bf16): "
+          f"{n_pipe} flash launches ((8 + 4 - 1) x 24), serial {n_serial}; "
+          f"equal to serial_reference bit for bit; pipeline {pipe_ms:.3f} "
+          f"ms, serial {serial_ms:.3f} ms; profile span "
+          f"{prof['span_ms']:.3f} ms, busy {ms3(prof['device_busy_ms'])} "
+          f"ms, idle share {ms3(prof['device_idle_share'])} "
+          f"[{card_line()}]")
+    return out
+
+
+def dist_trainer(ops, cfg, stream) -> dict:
+    """Step 24 (d): ``Trainer(mesh=make_host_mesh())`` against
+    ``Trainer()``, then a restore onto the shardings and one more step."""
+    import tempfile
+    from repro_torch.dist.sharding import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import Trainer
+
+    def trainer(**kw):
+        return Trainer(cfg, launch_train_config(cfg, "adamw", DIST_STEPS + 1),
+                       seed=SEED, **kw)
+
+    per_pass = 2 * cfg.n_layers
+    zero_flash_counts(ops)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        meshed = trainer(mesh=make_host_mesh(), ckpt_dir=d,
+                         ckpt_every=DIST_STEPS)
+        m_state, m_hist = meshed.run(stream, DIST_STEPS, log_every=1)
+        plain = trainer(device="cuda")
+        u_state, u_hist = plain.run(stream, DIST_STEPS, log_every=1)
+        trees_equal(m_state.params, u_state.params, "(d) meshed Trainer "
+                    "params vs Trainer()'s")
+        trees_equal(m_state.opt_state, u_state.opt_state, "(d) meshed "
+                    "Trainer adamw state vs Trainer()'s")
+        if [h["loss"] for h in m_hist] != [h["loss"] for h in u_hist]:
+            raise AssertionError("(d) meshed losses differ")
+        del m_state, meshed
+        gc_collect()
+        resumed = trainer(mesh=make_host_mesh(), ckpt_dir=d,
+                          ckpt_every=DIST_STEPS)
+        r_state, r_hist = resumed.run(stream, DIST_STEPS + 1, log_every=1)
+    if [h["step"] for h in r_hist] != [DIST_STEPS + 1]:
+        raise AssertionError(f"(d) resumed at {r_hist}")
+    if any(t.device.type != "cuda" for t in tree_leaves(
+            (r_state.params, r_state.opt_state))):
+        raise AssertionError("(d) a restored leaf is not on the card")
+    batch = tree_map(lambda a: a.to("cuda"), stream.batch_at(DIST_STEPS))
+    params, opt_state, metrics = plain._step(
+        u_state.params, u_state.opt_state, batch, DIST_STEPS)
+    trees_equal(r_state.params, params, "(d) resumed step params vs the "
+                "uninterrupted run's")
+    trees_equal(r_state.opt_state, opt_state, "(d) resumed adamw state vs "
+                "the uninterrupted run's")
+    if r_hist[-1]["loss"] != float(metrics["loss"]):
+        raise AssertionError("(d) resumed loss differs")
+    n_flash = per_pass * (2 * DIST_STEPS + 2)
+    check_flash_counts(ops, n_flash, "wgmma", "(d) the Trainer runs")
+    out = {"losses": [h["loss"] for h in u_hist] + [r_hist[-1]["loss"]],
+           "meshed == unmeshed, 2 steps, bit for bit": True,
+           "restored onto shardings, resumed step bit for bit": True,
+           "flash launches": n_flash, "s": time.perf_counter() - t0}
+    print(f"dist trainer ({DIST_ARCH} full width, {TRAIN_BATCH} x "
+          f"{TRAIN_LEN}, adamw): Trainer(mesh=make_host_mesh()) == Trainer() "
+          f"over {DIST_STEPS} steps bit for bit; checkpoint at step "
+          f"{DIST_STEPS} restored onto the shardings, step "
+          f"{DIST_STEPS + 1} bit for bit; losses "
+          f"{[round(v, 4) for v in out['losses']]}; {out['s']:.1f} s")
+    return out
+
+
+def dist_cli() -> dict:
+    """Step 24 (e): ``python -m repro_torch.launch.train --mesh host`` on
+    the reduced config, on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         DIST_ARCH, "--reduced", "--mesh", "host", "--steps", "4",
+         "--batch", "4", "--seq", "64"],
+        capture_output=True, text=True, env=env, cwd=HERE, timeout=300)
+    last = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+    if p.returncode != 0 or not last.startswith("final step 4: loss "):
+        raise AssertionError(f"--mesh host exited {p.returncode}: {last!r}"
+                             f"\n{p.stderr[-2000:]}")
+    out = {"last line": last, "s": time.perf_counter() - t0}
+    print(f"dist cli (launch.train --arch {DIST_ARCH} --reduced --mesh host "
+          f"on cuda): {last} ({out['s']:.1f} s)")
+    return out
+
+
+def dist_path(ops) -> dict:
+    """The data-parallel step, the pipeline, the meshed Trainer and its
+    restore, and the meshed CLI (module docstring, step 24)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg, "cuda")
+    stream = TokenStream(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=SEED)
+    out = {"part s": {}}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        out["part s"][name] = time.perf_counter() - t
+        gc_collect()
+
+    part("dp", dist_dp, ops, model, stream)
+    part("pipeline", dist_pipeline, ops, model, stream)
+    part("trainer", dist_trainer, ops, cfg, stream)
+    part("cli", dist_cli)
+    out["s"] = time.perf_counter() - t0
+    print(f"dist path parts (s): " + json.dumps(out["part s"]))
+    return out
+
+
+def profiled_kernels(fn, reps: int = 1, cpu: bool = True):
     """The device events of ``reps`` calls of ``fn`` under
     ``torch.profiler`` as ``key_averages`` rows, and the span of the calls
     in ms per call (CUDA events inside the profiled window, so profiler
-    start-up is not counted; host-side profiling overhead is).  A profile
+    start-up is not counted; host-side profiling overhead is).  With
+    ``cpu=False`` only the device's activity is recorded: no host-side
+    operator events, whose processing takes most of a long profile.  A profile
     that records no device activity at all is taken once more; if that
     one records none either, the rows are None: the profiler does not see
     the card in this process, and what it would measure is reported as not
@@ -6449,8 +6825,8 @@ def profiled_kernels(fn, reps: int = 1):
     for _ in range(2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * cpu
+                     + [ProfilerActivity.CUDA]) as prof:
             start.record()
             for _ in range(reps):
                 fn()
@@ -6472,14 +6848,15 @@ def profiled_kernels(fn, reps: int = 1):
 PROFILER_BLIND: list[bool] = []
 
 
-def profile_device(fn, reps: int = 3, match: str | None = None) -> dict:
+def profile_device(fn, reps: int = 3, match: str | None = None,
+                   cpu: bool = True) -> dict:
     """Device time per kernel over ``reps`` calls of ``fn``
-    (``profiled_kernels``), and the device's busy share of their span.
-    With ``match`` (a regular expression), also the device ms of the
-    kernels whose names match.  Where the profiler sees no device activity
-    the times are None."""
+    (``profiled_kernels``, host events too unless ``cpu`` is False), and
+    the device's busy share of their span.  With ``match`` (a regular
+    expression), also the device ms of the kernels whose names match.
+    Where the profiler sees no device activity the times are None."""
     import re
-    events, span_ms = profiled_kernels(fn, reps)
+    events, span_ms = profiled_kernels(fn, reps, cpu)
     if events is None:
         out = {"span_ms": span_ms, "device_busy_ms": None,
                "device_idle_share": None, "top": [],
@@ -6876,6 +7253,19 @@ def main() -> int:
                 if isinstance(out, dict) else out)
          for part, out in vlm.items()}))
 
+    # -- dist/ on one card (step 24): step 23's memory freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the dist path: {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated")
+    dist = dist_path(ops)
+    phase_s["dist path"] = time.perf_counter() - t0
+    print(f"dist path [{card}], {phase_s['dist path']:.1f} s: " + json.dumps(
+        {part: ({k: v for k, v in out.items() if k != "profile"}
+                if isinstance(out, dict) else out)
+         for part, out in dist.items()}, default=str))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -7182,6 +7572,22 @@ def main() -> int:
                 "flash launches (prefill, card)"],
             "reduced training steps vs CPU": vlm["reduced training"][
                 "flash_attention launches"]}}
+    # the dist path's launches (step 24): the one-shard dp step and the
+    # train step beside it, the int8 dp steps, the pipeline and its serial
+    # reference, the Trainer runs; all bf16
+    dist_flash = {
+        "flash_attention": {
+            "dp step, one shard, and make_train_step (a)": dist["dp"][
+                "one shard"]["flash launches"],
+            "int8 dp steps, 4 shards (b)": dist["dp"]["int8"][
+                "flash launches"],
+            "pipeline_apply (c)": dist["pipeline"][
+                "flash launches (pipeline)"],
+            "serial_reference (c)": dist["pipeline"][
+                "flash launches (serial)"],
+            "meshed and unmeshed Trainer, resumed step (d)": dist[
+                "trainer"]["flash launches"]},
+        "flash_attention_simt": {}}
     bwd_yard = lm_train["standard"]["attention backward yardsticks"]
 
     def fw_row(dt, case):
@@ -7203,7 +7609,10 @@ def main() -> int:
              "the encode of its served cross cache, 12, and its training "
              "steps, 72 a step, all wgmma/chunked), and the VLM path "
              "(launches_vlm: qwen2-vl-72b's prefill at 8 layers, 8, and "
-             "its 1-layer training steps, 2 a step, all wgmma/chunked)"),
+             "its 1-layer training steps, 2 a step, all wgmma/chunked), and "
+             "the dist path (launches_dist: qwen2-0.5b's data-parallel, "
+             "pipeline and meshed Trainer runs, all wgmma/chunked; the "
+             "--mesh host CLI runs in a process of its own, not counted)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
@@ -7222,6 +7631,7 @@ def main() -> int:
         launches += sum(moe_flash[name].values())
         launches += sum(encdec_flash[name].values())
         launches += sum(vlm_flash[name].values())
+        launches += sum(dist_flash[name].values())
         qwen2_vl = next(r for r in fv_rows if r["dtype"] == dt
                         and r["semantics"] == "chunked")
         seamless = next(r for r in fx_rows if r["dtype"] == dt
@@ -7252,6 +7662,7 @@ def main() -> int:
                              f"(attention-free)": 0},
             "launches_encdec": encdec_flash[name],
             "launches_vlm": vlm_flash[name],
+            "launches_dist": dist_flash[name],
             "vlm_prefill_shape": {k: qwen2_vl[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},

@@ -13,8 +13,10 @@ make, so the CLI refuses it (as the reference's cannot train it either):
 train it through ``make_train_step`` or ``Trainer`` on such batches.
 Runs on ``--device cuda`` unless given ``--device cpu``; without a card
 the CUDA default raises.  TF32 stays off, so float32 compute means full
-fp32 products.  ``--mesh`` other than ``none`` raises: meshed training
-waits for the port's ``dist/`` (ROADMAP Queue 1 step 5.4).
+fp32 products.  ``--mesh host|single|multi`` builds the reference's mesh
+(``launch/mesh.py``: ``(n, 1)`` over the visible devices, or the
+production ``(16, 16)`` / ``(2, 16, 16)``) folded onto the device, and
+trains on it with the reference's shardings.
 """
 from __future__ import annotations
 
@@ -26,9 +28,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.data.pipeline import TokenStream
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.runtime import Trainer
-from repro_torch.runtime.train_loop import MESH_NOT_PORTED
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -50,8 +52,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
 
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO,
@@ -70,10 +70,17 @@ def main(argv: list[str] | None = None) -> None:
     if args.crossbar:
         cfg = cfg.replace(crossbar=True)
 
+    mesh = None
+    if args.mesh == "host":
+        mesh = make_host_mesh(device=device)
+    elif args.mesh in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
+                                    device=device)
+
     lr = cosine_schedule(args.lr, warmup_steps=max(args.steps // 20, 1),
                          total_steps=args.steps)
     opt = make_optimizer(args.optimizer, lr)
-    trainer = Trainer(cfg, opt, ckpt_dir=args.ckpt_dir,
+    trainer = Trainer(cfg, opt, mesh=mesh, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, seed=args.seed,
                       device=device)
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch, seed=args.seed)

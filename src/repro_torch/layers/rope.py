@@ -10,19 +10,35 @@ tokens included, as the reference's model does.
 
 Angles and the rotation are computed in fp32, as the reference does: a
 bf16 ``x`` is widened to fp32 for the rotation and the result cast back.
+Both rotations take their frequencies from ``_rope_freqs``, equal to the
+reference's bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The dim/2 fp32 frequencies ``1 / theta ** (2i / dim)``, the
+    reference's bit for bit: theta ** e is taken in float64 and rounded
+    once to fp32, which equals XLA's fp32 pow at hd 64, 128 and 256 for
+    theta 1e4, 1e6 and 5e6 (torch's fp32 pow is an ulp off it in some
+    bands, e.g. band 37 at hd 128 and theta 1e6).  They are computed on the
+    host, so no device's pow enters, and moved to ``device`` once per
+    (dim, theta, device); callers never write to them."""
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+    freqs = 1.0 / (theta ** exponents.double()).float()
+    return freqs.to(device)
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float
                  ) -> torch.Tensor:
     """positions (..., seq) -> angles (..., seq, dim//2), fp32."""
-    exponents = torch.arange(0, dim, 2, dtype=torch.float32,
-                             device=positions.device) / dim
-    freqs = 1.0 / (theta ** exponents)
-    return positions[..., None].to(torch.float32) * freqs
+    return (positions[..., None].to(torch.float32)
+            * _rope_freqs(dim, theta, positions.device))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
@@ -47,17 +63,12 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     head_dim//2."""
     d = x.shape[-1]
     assert sum(sections) == d // 2, (sections, d)
-    exponents = torch.arange(0, d, 2, dtype=torch.float32,
-                             device=x.device) / d
-    # theta ** e rounded once to fp32, as XLA's pow rounds it (torch's fp32
-    # pow is an ulp off in a few bands: hd 128 at theta 1e6, band 37)
-    freqs = 1.0 / (theta ** exponents.double()).float()
     # which stream drives each frequency band: [t]*s0 + [h]*s1 + [w]*s2
     stream = torch.cat([torch.full((s,), i, dtype=torch.long,
                                    device=x.device)
                         for i, s in enumerate(sections)])
     pos = positions_3d.to(torch.float32)[..., stream]    # (b, s, d/2)
-    ang = pos * freqs
+    ang = pos * _rope_freqs(d, theta, x.device)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     xf = x.to(torch.float32)

@@ -66,8 +66,7 @@ class Model:
     def abstract_params(self) -> dict:
         """The parameter tree as ``meta`` tensors: shapes and dtypes,
         nothing allocated (what a checkpoint restores into)."""
-        return shd.tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
-                                                  device="meta"), self.spec)
+        return shd.abstract_params(self.spec)
 
 
 def _positions_for(cfg: ModelConfig, B: int, L: int, *,

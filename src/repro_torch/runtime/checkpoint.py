@@ -11,9 +11,9 @@ A step is written to a temporary directory and renamed into place, and
 it.  The data stream needs nothing but the step (``data/pipeline``).
 
 Trees are dicts, tuples and lists of tensors (or numpy arrays); ``None``
-is an empty subtree, as in JAX.  The mesh-resharding restore
-(``shardings=``) waits for the port's ``dist/`` (ROADMAP Queue 1 step
-5.4).
+is an empty subtree, as in JAX.  ``restore(shardings=)`` places each leaf
+on its ``NamedSharding``'s device (the mesh folded onto one device); the
+on-disk layout does not depend on it.
 """
 from __future__ import annotations
 
@@ -121,14 +121,15 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: int | None = None,
             shardings: Any = None,
             device: str | torch.device = "cuda") -> tuple[Any, int, dict]:
     """Restore into the structure of ``tree_like`` (leaves: anything with a
-    ``shape``, e.g. tensors on the ``meta`` device) -> (tree of tensors on
-    ``device`` with the stored dtypes, step, the manifest's ``extra``).
-    Raises where a stored shape differs from the leaf's."""
+    ``shape``, e.g. tensors on the ``meta`` device) -> (tree of tensors
+    with the stored dtypes, step, the manifest's ``extra``).  Each leaf
+    lies on its sharding's device where ``shardings`` (a tree of
+    ``NamedSharding`` of ``tree_like``'s structure) is given, else on
+    ``device``.  Raises where a stored shape differs from the leaf's."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh waits for the port's dist/ (ROADMAP "
-            "Queue 1 step 5.4)")
-    device = resolve_device(device)
+        placement = {path: sh.device for path, sh in _walk(shardings)}
+    else:
+        device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -143,6 +144,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: int | None = None,
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"{key}: stored {arr.shape}, expected "
                                  f"{tuple(like.shape)}")
-            return torch.from_numpy(arr).to(device)
+            return torch.from_numpy(arr).to(
+                placement[path] if shardings is not None else device)
         out = _rebuild(tree_like, leaf)
     return out, step, manifest["extra"]

@@ -11,8 +11,13 @@ the step-keyed data stream (a restart replays it exactly), one host read
 of the step's metrics, and the straggler watchdog and fault-injector
 hooks (``runtime/faults.py``).
 
-The meshed forms (``param_shardings=``, ``Trainer(mesh=, rules=)``) wait
-for the port's ``dist/`` (ROADMAP Queue 1 step 5.4) and raise.
+The meshed forms take the reference's mesh folded onto one device
+(``dist.sharding.Mesh``): ``make_train_step(param_shardings=)`` pins each
+gradient to its sharding's device (an identity there), and
+``Trainer(mesh=, rules=)`` builds the reference's ``rules``,
+``param_shardings``, ``opt_shardings`` and ``batch_sharding``, runs on
+the mesh's device, and restores checkpoints onto the shardings.  A meshed
+step computes what the unmeshed one computes, bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import TokenStream
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.collectives import value_and_grad
 from repro_torch.dist.sharding import tree_leaves, tree_map
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
@@ -33,10 +40,6 @@ from repro_torch.runtime.faults import (FaultInjector, StepTimer,
                                         StragglerWatchdog)
 
 log = logging.getLogger("repro_torch.train")
-
-MESH_NOT_PORTED = ("meshed training waits for the port's dist/ (ROADMAP "
-                   "Queue 1 step 5.4)")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -62,11 +65,6 @@ def make_paper_train_step(spec, lr: float, *, use_kernel: bool = True):
     return step
 
 
-def _like(tree: Any, leaves) -> Any:
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
-
-
 def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
                     grad_accum: int = 1):
     """``train_step(params, opt_state, batch, step) -> (params, opt_state,
@@ -77,20 +75,20 @@ def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
     ``grad_accum`` > 1 splits the batch into microbatches that interleave
     rows (B -> (B/k, k) -> k microbatches of rows i, i + k, ...), as the
     reference slices them; their gradients and losses are summed in order
-    and divided by k."""
-    if param_shardings is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    and divided by k.
+
+    ``param_shardings`` (a ``NamedSharding`` tree) pins the gradients to
+    their shardings, as the reference's constraint does: on one device
+    each gradient on its sharding's device, where it already lies."""
+    def constrain_grads(grads):
+        if param_shardings is None:
+            return grads
+        return tree_map(lambda g, sh: g.to(sh.device), grads,
+                        param_shardings)
 
     def grad_fn(params, batch):
-        leaves = tree_leaves(params)
-        with torch.enable_grad():
-            live = [p.detach().requires_grad_(True) for p in leaves]
-            loss, metrics = model.loss_fn(_like(params, live), batch)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                _like(params, grads))
+        loss, metrics, grads = value_and_grad(model.loss_fn, params, batch)
+        return loss, metrics, constrain_grads(grads)
 
     def micro(leaf, i):
         if leaf.dim() == 0:
@@ -126,30 +124,59 @@ def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
 
 
 class Trainer:
-    """The training loop on one device (``cuda`` unless the caller asks
-    for the CPU; raises without a card)."""
+    """The training loop on one device: ``cuda`` unless the caller asks
+    for the CPU (raises without a card), or the device of ``mesh``, a
+    ``dist.sharding.Mesh`` folded onto one device.  With a mesh it builds
+    the reference's ``rules`` (``make_rules(mesh)`` unless given),
+    ``param_shardings``, ``opt_shardings`` (each state leaf the sharding
+    of the parameter of its shape and dtype) and ``batch_sharding``; every
+    leaf lies on the mesh's device."""
 
     def __init__(self, cfg: ModelConfig, opt: Optimizer, *,
-                 mesh=None, rules: dict | None = None,
+                 mesh: shd.Mesh | None = None, rules: dict | None = None,
                  ckpt_dir: str | None = None,
                  ckpt_every: int = 50,
                  keep_last: int = 3,
                  fault_injector: FaultInjector | None = None,
                  seed: int = 0,
-                 device: str | torch.device = "cuda"):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+                 device: str | torch.device | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device or "cuda")
         self.model = build_model(cfg, self.device)
         self.opt = opt
+        self.mesh = mesh
+        self.rules = rules or (shd.make_rules(mesh) if mesh is not None
+                               else None)
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.keep_last = keep_last
         self.faults = fault_injector or FaultInjector()
         self.watchdog = StragglerWatchdog()
         self.seed = seed
-        self._step = make_train_step(self.model, opt)
+        self._build()
+
+    def _build(self) -> None:
+        model, opt = self.model, self.opt
+        self._step = make_train_step(model, opt)
+        if self.mesh is None:
+            self.param_shardings = None
+            self.opt_shardings = None
+            self.batch_sharding = None
+            return
+        self.param_shardings = shd.named_shardings(model.spec, self.rules,
+                                                   self.mesh)
+        # optimizer state mirrors the parameters' shardings leaf by leaf
+        abs_params = model.abstract_params()
+        self.opt_shardings = _mirror_shardings(
+            opt.init(abs_params), abs_params, self.param_shardings)
+        self.batch_sharding = shd.NamedSharding(
+            self.mesh, shd.PartitionSpec(self.rules.get("batch")))
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -161,7 +188,11 @@ class Trainer:
         if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
             abs_params = self.model.abstract_params()
             tree = {"params": abs_params, "opt": self.opt.init(abs_params)}
+            shards = ({"params": self.param_shardings,
+                       "opt": self.opt_shardings}
+                      if self.param_shardings is not None else None)
             restored, step, _ = ckpt.restore(self.ckpt_dir, tree,
+                                             shardings=shards,
                                              device=self.device)
             log.info("restored checkpoint at step %d", step)
             return TrainState(restored["params"], restored["opt"], step)
@@ -207,3 +238,23 @@ class Trainer:
             if self.ckpt_every and state.step % self.ckpt_every == 0:
                 self.save(state)
         return state, history
+
+
+def _mirror_shardings(abs_opt, abs_params, param_shardings):
+    """Give optimizer-state leaves the sharding of the first parameter (in
+    the reference's sorted-key order) with the same shape and dtype;
+    replicate otherwise."""
+    flat_p = dict(ckpt._walk(abs_params))
+    flat_s = dict(ckpt._walk(param_shardings))
+    by_shape: dict[tuple, Any] = {}
+    for path in sorted(flat_p):
+        p = flat_p[path]
+        by_shape.setdefault((tuple(p.shape), p.dtype), flat_s[path])
+    mesh = next(iter(flat_s.values())).mesh
+
+    def pick(leaf):
+        return by_shape.get((tuple(leaf.shape), leaf.dtype),
+                            shd.NamedSharding(mesh, shd.PartitionSpec()))
+
+    return tree_map(pick, abs_opt)
+

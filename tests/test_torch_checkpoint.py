@@ -1,8 +1,9 @@
 """Port parity: ``repro_torch.runtime.checkpoint`` and the trainer's
 preempt-and-resume against ``repro.runtime.checkpoint``'s statements
 (after ``tests/test_checkpoint.py``, its single-device part): the
-roundtrip, ``keep_last``, atomic writes, a bit-for-bit resume, and one
-on-disk layout that each package restores from the other.
+roundtrip (also onto a mesh's shardings), ``keep_last``, atomic writes, a
+bit-for-bit resume, and one on-disk layout that each package restores
+from the other.
 
 Tolerances: none.  A checkpoint stores arrays whole and restores them
 exactly; a resumed run replays the same float32 operations on the same
@@ -23,7 +24,9 @@ from repro.runtime import Trainer as JTrainer  # noqa: E402
 from repro.runtime import checkpoint as jckpt  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.data import TokenStream  # noqa: E402
-from repro_torch.dist.sharding import tree_leaves, tree_map  # noqa: E402
+from repro_torch.dist.sharding import (NamedSharding,  # noqa: E402
+                                       PartitionSpec, tree_leaves, tree_map)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import Trainer, checkpoint as ckpt  # noqa: E402
 from repro_torch.runtime.faults import (FaultInjector,  # noqa: E402
@@ -50,8 +53,20 @@ def test_roundtrip(tmp_path):
         assert got.dtype == want.dtype and torch.equal(got, want)
     with pytest.raises(ValueError, match="stored"):
         ckpt.restore(str(tmp_path), {"a": torch.empty(4, 3)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="dist/"):
-        ckpt.restore(str(tmp_path), like, shardings={}, device="cpu")
+    # onto shardings: each leaf on its sharding's device, the values equal
+    mesh = make_host_mesh(device="cpu")
+    rep = NamedSharding(mesh, PartitionSpec())
+    shards = tree_map(lambda _: rep, {k: v for k, v in like.items()
+                                      if k != "none"})
+    shards["none"] = None
+    placed, step, _ = ckpt.restore(str(tmp_path), like, shardings=shards)
+    assert step == 7 and placed["none"] is None
+    for got, want in zip(tree_leaves({k: v for k, v in placed.items()
+                                      if k != "none"}),
+                         tree_leaves({k: v for k, v in tree.items()
+                                      if k != "none"})):
+        assert got.device.type == "cpu" and got.dtype == want.dtype
+        assert torch.equal(got, want)
 
 
 def test_keep_last_gc(tmp_path):

@@ -129,9 +129,13 @@ def test_rope_to_2048_at_theta_1e6(dtype):
     jx, tx = _pair(x, dtype)
     want = jrope.apply_rope(jx, jnp.asarray(pos), theta=1e6)
     got = trope.apply_rope(tx, torch.from_numpy(pos), theta=1e6)
-    np.testing.assert_array_equal(
-        trope._rope_angles(torch.from_numpy(pos), 64, 1e6).numpy(),
-        np.asarray(jrope._rope_angles(jnp.asarray(pos), 64, 1e6)))
+    # the angles bit for bit at every head_dim and theta the configs use
+    for hd in (64, 128, 256):
+        for theta in (1e4, 1e6, 5e6):
+            np.testing.assert_array_equal(
+                trope._rope_angles(torch.from_numpy(pos), hd, theta).numpy(),
+                np.asarray(jrope._rope_angles(jnp.asarray(pos), hd, theta)),
+                err_msg=f"hd {hd}, theta {theta}")
     assert got.dtype == DTYPES[dtype][1]
     if dtype == "float32":
         assert_close(got, want, 1e-6)

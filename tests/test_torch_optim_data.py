@@ -7,9 +7,12 @@ Tolerances, each with its reason:
 - schedules: equal within one float32 ulp (both compute in float32; the
   cosine's libm may differ in the last bit).
 - sgd and adamw: 1e-6 absolute plus 1e-6 relative over five steps (the
-  same float32 operations in the same order; a schedule's value or a
-  bias correction may differ in the last bit, and the reference under
-  ``jit`` may contract a product and a sum).
+  same float32 operations in the same order; a schedule's value may
+  differ in the last bit, and the reference under ``jit`` may contract a
+  product and a sum).
+- adamw's bias corrections: bit for bit against ``jax.jit`` of the
+  reference's expression at ``jnp.int32`` steps 0-4999, as the
+  reference's ``Trainer`` and ``dp_train_step_fn`` take them.
 - pulse_sgd: every pulse count equal, except where the reference's
   unrounded count lies within 1e-4 of a half-integer (counted; none in
   these draws), so parameters within 1e-6.
@@ -117,6 +120,39 @@ def test_optimizer_steps_match_reference(name):
     # the update wrote the parameters in place (the port's donation)
     assert [id(t) for t in jax.tree.leaves(tree_map(lambda t: t, tp))] \
         == ids
+
+
+@pytest.mark.parametrize("b", [0.9, 0.95])
+def test_adamw_bias_correction_is_the_jitted_references(b):
+    """``1 - b ** t`` at t = step + 1 as the reference's jitted update
+    computes it at an int32 step (float32), bit for bit."""
+    steps = jnp.arange(5000, dtype=jnp.int32)
+    want = np.asarray(jax.jit(jax.vmap(lambda s: 1 - b ** (s + 1)))(steps))
+    assert want.dtype == np.float32
+    got = np.array([topt._bias_correction(b, t + 1) for t in range(5000)],
+                   dtype=np.float32)
+    np.testing.assert_array_equal(got, want)
+    # the scalar jitted form the training step traces
+    one = jax.jit(lambda s: 1 - b ** (s + 1))
+    for t in (0, 1, 7, 99, 4999):
+        assert topt._bias_correction(b, t + 1) == float(one(jnp.int32(t)))
+
+
+@pytest.mark.parametrize("name", ["adamw", "adamw schedule + decay"])
+def test_adamw_matches_the_jitted_reference_update(name):
+    """Five updates of the reference's ``jax.jit(opt.update)`` at int32
+    steps, as its training step runs them, beside the port's."""
+    jo, to = OPTS[name](jopt), OPTS[name](topt)
+    p0 = _tree(0)
+    jp, tp = _jax(p0), _torch(p0)
+    js, ts = jo.init(jp), to.init(tp)
+    update = jax.jit(jo.update)
+    for step in range(5):
+        g = _tree(10 + step, scale=0.5)
+        jp, js = update(_jax(g), js, jp, step=jnp.int32(step))
+        tp, ts = to.update(_torch(g), ts, tp, step=step)
+        _assert_close(tp, jp, f"{name} params, step {step}")
+        _assert_close(ts, js, f"{name} state, step {step}")
 
 
 def _quad_loss(p):

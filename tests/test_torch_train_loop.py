@@ -1,12 +1,15 @@
 """The port's training loop and its launchers on the CPU: ``Trainer.run``
 and its hooks (history, watchdog, fault injector, step timer) against the
 reference's statements, ``repro_torch.launch.train --reduced --device
-cpu``, ``examples/torch_quickstart.py --device cpu``, and
-``launch.serve --ckpt-dir`` serving what a checkpoint restores.
+cpu``, ``examples/torch_quickstart.py --device cpu``, ``launch.serve
+--ckpt-dir`` serving what a checkpoint restores, and the meshed forms
+(``Trainer(mesh=)``, ``param_shardings=``, ``--mesh host``) equal to the
+unmeshed ones.
 
 Tolerances: none.  The watchdog's and injector's decisions are exact;
 served tokens are compared with a server on the same restored parameters
-in the same process.
+in the same process; a meshed step runs the unmeshed step's operations on
+the same device.
 """
 import os
 import pathlib
@@ -20,7 +23,9 @@ torch = pytest.importorskip("torch")
 from repro.runtime import faults as jfaults  # noqa: E402
 from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.data import TokenStream  # noqa: E402
-from repro_torch.dist.sharding import tree_leaves  # noqa: E402
+from repro_torch.dist.sharding import (make_rules,  # noqa: E402
+                                       named_shardings, tree_leaves)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import adamw, make_optimizer, sgd  # noqa: E402
 from repro_torch.runtime import (BatchedServer, FaultInjector,  # noqa: E402
@@ -82,12 +87,35 @@ def test_trainer_batch_fn_and_injector():
 
 
 def test_meshed_forms_raise():
+    """The meshed forms work and equal the unmeshed ones: a step with
+    ``param_shardings`` and a ``Trainer`` on a host mesh folded onto the
+    CPU, bit for bit; a mesh on another device than the one asked for
+    raises."""
     cfg = get_reduced_config(ARCH)
-    with pytest.raises(NotImplementedError, match="dist/"):
-        Trainer(cfg, sgd(0.1), mesh=object(), device="cpu")
+    mesh = make_host_mesh(device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        Trainer(cfg, sgd(0.1), mesh=mesh, device="meta")
     model = build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="dist/"):
-        train_loop.make_train_step(model, sgd(0.1), param_shardings={})
+    shardings = named_shardings(model.spec, make_rules(mesh), mesh)
+    batch = TokenStream(cfg.vocab_size, 16, 2, seed=3).batch_at(0)
+    runs = []
+    for kw in ({}, {"param_shardings": shardings}):
+        params = model.init(torch.Generator().manual_seed(0))
+        opt = sgd(0.1)
+        step = train_loop.make_train_step(model, opt, **kw)
+        runs.append(step(params, opt.init(params), batch, 0))
+    for a, b in zip(tree_leaves(runs[0]), tree_leaves(runs[1])):
+        assert torch.equal(a, b)
+    stream = TokenStream(cfg.vocab_size, 16, 2, seed=3)
+    plain, ph = Trainer(cfg, sgd(0.1), device="cpu").run(stream, 2,
+                                                        log_every=100)
+    trainer = Trainer(cfg, sgd(0.1), mesh=mesh)
+    assert trainer.device.type == "cpu" and trainer.rules == make_rules(mesh)
+    meshed, mh = trainer.run(stream, 2, log_every=100)
+    assert [h["loss"] for h in ph] == [h["loss"] for h in mh]
+    for a, b in zip(tree_leaves((plain.params, plain.opt_state)),
+                    tree_leaves((meshed.params, meshed.opt_state))):
+        assert a.device.type == "cpu" and torch.equal(a, b)
 
 
 def test_watchdog_and_injector_match_reference():
@@ -125,11 +153,14 @@ def test_train_cli_on_cpu(tmp_path):
     last = p.stdout.strip().splitlines()[-1]
     assert last.startswith("final step 6: loss ") and "(first " in last
     assert ckpt.latest_step(str(tmp_path)) == 6
-    bad = subprocess.run(
+    meshed = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
-         "--reduced", "--device", "cpu", "--mesh", "host"],
+         "--reduced", "--device", "cpu", "--mesh", "host", "--steps", "3",
+         "--batch", "2", "--seq", "32"],
         capture_output=True, text=True, cwd=REPO, env=_env(), timeout=300)
-    assert bad.returncode != 0 and "dist/" in bad.stderr
+    assert meshed.returncode == 0, meshed.stderr
+    assert meshed.stdout.strip().splitlines()[-1].startswith(
+        "final step 3: loss ")
 
 
 def test_quickstart_example_on_cpu(tmp_path):
