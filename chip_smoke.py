@@ -451,12 +451,30 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     the card) and its step 3 equal to the uninterrupted run's bit for
     bit; (e) ``python -m repro_torch.launch.train --arch qwen2-0.5b
     --reduced --mesh host`` runs 4 steps on the card;
-25. prints the wave and training-step times (CUDA events), compiled beside
+25. the analysis tools and the autotuner, after step 24's memory is
+    freed: (a) at three shapes (``AUTOTUNE_SHAPES``: an eager mnist
+    wave's first stage, the farm step's stacked first stage over 4 chips
+    (``fold=4``), qwen2-0.5b's (4096, 896, 4864) projection on int8
+    codes) the wrappers run with ``autotune=True``, which times every
+    candidate tile of the forward, bwd, dw, pulse and fused kernel (N <=
+    128) by CUDA events into a temporary ``REPRO_TORCH_AUTOTUNE_TABLE``;
+    the tuned tile's outputs equal the decision-list tile's bit for bit,
+    both are timed; the table, reloaded, gives the same picks without a
+    timing pass; (b) ``launch/dryrun``'s trace of qwen2-0.5b's prefill
+    and adamw step at 4 x 2048 bf16 on ``make_host_mesh(device="cuda")``
+    against the same cells run on the card: the predicted
+    ``memory.argument`` equals the bytes of the parameters, adamw state
+    and batch the run holds (plus the step scalar), the measured time is
+    at least ``t_bound``, the traced FLOPs at least
+    ``model_flops_estimate``, and ``dryrun.HBM_PER_CHIP`` is the card's
+    ``total_memory``; the predicted per-device bytes are printed beside
+    ``torch.cuda.max_memory_allocated()``;
+26. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18-24
+    by the counts its capture recorded) — all taken before steps 18-25
     run, which come last of the paths, so that their large allocations
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
@@ -471,7 +489,8 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     ``launches_vlm`` and ``launches_dist``, with the local layer's, hd 256's, seamless's
     non-causal and qwen2-vl's prefill timings, the cross phase's rows and
     the backward's yardsticks beside; ``crossbar_dw`` carries
-    ``farm_step_local_dw``), and last
+    ``farm_step_local_dw``; the crossbar kernels carry step 25's
+    ``autotune`` picks and times), the run's seconds, and last
     ``{"ok": true, "device": {...}}``.
 
 Tolerances: fp32 values agree within 1e-5 absolute plus 1e-5 relative (the
@@ -4305,20 +4324,24 @@ def check_layer0_launches(xbk, rec) -> dict:
     within XB_BAR of sum_k |x_k| |w_k| (fp32 sums of up to 4864 terms in
     other orders)."""
     worst = {"crossbar_fwd": 0.0, "crossbar_bwd": 0.0, "crossbar_dw": 0.0}
+
+    def plain(kw):      # the plain versions have no tile
+        return {k: v for k, v in kw.items() if k not in ("tile", "run")}
+
     for (xs, gp, gm), kw, y in rec.fwd:
-        want = xbk.crossbar_fwd_plain(xs, gp, gm, **kw)
+        want = xbk.crossbar_fwd_plain(xs, gp, gm, **plain(kw))
         mag = torch.matmul(xs.abs(), (gp - gm).abs())
         worst["crossbar_fwd"] = max(worst["crossbar_fwd"], check_relative(
             y, want, mag, f"layer-0 fwd {tuple(xs.shape)} x "
                           f"{tuple(gp.shape)}"))
     for (dys, gp, gm), kw, dx in rec.bwd:
-        want = xbk.crossbar_bwd_plain(dys, gp, gm, **kw)
+        want = xbk.crossbar_bwd_plain(dys, gp, gm, **plain(kw))
         d = xbk._dequant(dys, kw.get("dy_scale"))
         mag = torch.matmul(d.abs(), (gp - gm).abs().transpose(1, 2))
         worst["crossbar_bwd"] = max(worst["crossbar_bwd"], check_relative(
             dx, want, mag, f"layer-0 bwd {tuple(dys.shape)} {dys.dtype}"))
     for (xs, dys), kw, dw in rec.dw:
-        want = xbk.crossbar_dw_plain(xs, dys, **kw)
+        want = xbk.crossbar_dw_plain(xs, dys, **plain(kw))
         d = xbk._dequant(dys, kw.get("dy_scale"))
         mag = torch.matmul(xs.abs().transpose(1, 2), d.abs())
         worst["crossbar_dw"] = max(worst["crossbar_dw"], check_relative(
@@ -6808,6 +6831,236 @@ def dist_path(ops) -> dict:
     return out
 
 
+# (T, M, K, N, fold, codes) of the autotuner's shapes (step 25 (a)): an
+# eager mnist wave's first stage (its step's first stack too), the farm
+# step's stacked first stage over 4 chips (4 x 6 cores at 4 x 1024, the
+# chip axis folded), qwen2-0.5b's (4096, 896, 4864) projection in the
+# crossbar kernel mode (one core, int8 error codes; the fused kernel
+# holds at most 128 columns, so it is not tuned there)
+AUTOTUNE_SHAPES = {
+    "mnist wave, first stage": (6, 4096, 400, 100, None, False),
+    "farm step, first stage, 4 chips": (6, 1024, 400, 100, 4, False),
+    "qwen2-0.5b projection (4096, 896, 4864)": (1, 4096, 896, 4864, None,
+                                                True),
+}
+
+
+def autotune_shape(ops, xbk, gen, T, M, K, N, fold, codes) -> dict:
+    """Time every candidate tile of the forward, bwd, dw, pulse and (N <=
+    128) the fused kernel through the wrappers with ``autotune=True``;
+    hold the tuned tile's outputs to the decision-list tile's bit for bit
+    and time both."""
+    lead = (fold, T) if fold else (T,)
+    x = uniform(lead + (M, K), -0.5, 0.5, gen)
+    gp = uniform(lead + (K, N), 0.0, 1.0, gen)
+    gm = uniform(lead + (K, N), 0.0, 1.0, gen)
+    d = uniform(lead + (M, N), -0.05, 0.05, gen)
+    scale = torch.full((), 0.05 / 127, device="cuda")
+    if codes:
+        d = torch.randint(-127, 128, lead + (M, N), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    err = {"dy_scale": scale} if codes else {}
+    flat = [t.reshape((-1,) + t.shape[-2:]) for t in (x, gp, gm, d)]
+    Tf = flat[0].shape[0]
+    if fold or T > 1:
+        calls = {
+            "crossbar_fwd": ("fwd_stacked", lambda: ops.crossbar_fwd_stacked(
+                x, gp, gm, autotune=True)),
+            "crossbar_bwd": ("bwd_stacked", lambda: ops.crossbar_bwd_stacked(
+                d, gp, gm, autotune=True, **err)),
+            "crossbar_dw": ("dw_stacked", lambda: ops.crossbar_dw_stacked(
+                x, d, autotune=True, **err)),
+            "pulse_update": ("pulse_stacked", lambda: ops.pulse_update_stacked(
+                gp, gm, x, d, lr=LR, autotune=True)),
+            "crossbar_train": ("train_stacked",
+                               lambda: ops.crossbar_train_stacked(
+                                   gp, gm, x, d, lr=LR, autotune=True,
+                                   **err))}
+    else:       # the LM projection: the 2-D wrappers crossbar_matmul takes
+        calls = {
+            "crossbar_fwd": ("fwd", lambda: ops.crossbar_fwd(
+                x[0], gp[0], gm[0], activation=False, autotune=True)),
+            "crossbar_bwd": ("bwd", lambda: ops.crossbar_bwd(
+                d[0], gp[0], gm[0], autotune=True, **err)),
+            "crossbar_dw": ("dw", lambda: ops.crossbar_dw(
+                x[0], d[0], autotune=True, **err))}
+    if codes:
+        calls.pop("pulse_update", None)
+    if N > xbk.MAX_N_TRAIN:
+        calls.pop("crossbar_train", None)
+    kernels = {
+        "crossbar_fwd": lambda c: xbk.crossbar_fwd_kernel(
+            flat[0], flat[1], flat[2], activation=False, tile=c[0]),
+        "crossbar_bwd": lambda c: xbk.crossbar_bwd_kernel(
+            flat[3], flat[1], flat[2], tile=c[0], run=c[1], **err),
+        "crossbar_dw": lambda c: xbk.crossbar_dw_kernel(
+            flat[0], flat[3], tile=c[0], **err),
+        "pulse_update": lambda c: xbk.pulse_update_kernel(
+            flat[1], flat[2], flat[0], flat[3], lr=LR, tile=c[0]),
+        "crossbar_train": lambda c: xbk.crossbar_train_kernel(
+            flat[1], flat[2], flat[0], flat[3], lr=LR, tile=c[0], **err)}
+    out = {}
+    for name, (op, call) in calls.items():
+        call()
+        d_bytes = 4 if name in ("crossbar_fwd", "pulse_update") \
+            else flat[3].element_size()
+        key = ((op, Tf, M, K, N, d_bytes) if fold is None
+               else (op, fold, Tf, M, K, N, d_bytes))
+        if key not in ops._TUNED_KEYS:
+            raise AssertionError(f"autotune: {name} at {key} was not timed")
+        tuned = ops._BLOCK_CACHE[key]
+        default = ops.default_tile(op, Tf, M, K, N, d_bytes)
+        a, b = kernels[name](default), kernels[name](tuned)
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if not torch.equal(u, v):
+                raise AssertionError(f"autotune: {name} at {key}: tile "
+                                     f"{tuned} differs from {default}")
+        out[name] = {
+            "op": op, "default": list(default), "tuned": list(tuned),
+            "candidates": len(ops.tile_candidates(op, Tf, M, K, N,
+                                                  d_bytes)),
+            "default_ms": cuda_ms(lambda: kernels[name](default)),
+            "tuned_ms": cuda_ms(lambda: kernels[name](tuned))}
+    return out
+
+
+def autotune_phase(ops, xbk, gen) -> dict:
+    """Step 25 (a): the autotuner on the card, its table round trip."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    table = os.path.join(tmp, "autotune.json")
+    os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = table
+    try:
+        ops._BLOCK_CACHE.clear()
+        ops._TUNED_KEYS.clear()
+        res = {what: autotune_shape(ops, xbk, gen, *shape)
+               for what, shape in AUTOTUNE_SHAPES.items()}
+        tuned = {k: ops._BLOCK_CACHE[k] for k in ops._TUNED_KEYS}
+        with open(table) as f:
+            saved = json.load(f)
+        ops._BLOCK_CACHE.clear()
+        ops._TUNED_KEYS.clear()
+        n = ops.load_autotune_table()
+
+        def no_timing(*_):
+            raise AssertionError("autotune: a reloaded entry was re-timed")
+        again = {k: ops.block_config(
+            k[0], *k[-5:-1], d_bytes=k[-1],
+            fold=k[1] if len(k) == 7 else None, autotune=True,
+            time_fn=no_timing) for k in tuned}
+        if n != len(tuned) or len(saved) != n or again != tuned:
+            raise AssertionError(f"autotune table round trip: saved "
+                                 f"{len(saved)}, loaded {n}, picks equal "
+                                 f"{again == tuned}")
+        res["table entries"] = n
+    finally:
+        del os.environ["REPRO_TORCH_AUTOTUNE_TABLE"]
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    return res
+
+
+def dryrun_vs_card(ops, gen) -> dict:
+    """Step 25 (b): the dry run's trace of qwen2-0.5b's prefill and adamw
+    step at 4 x 2048 bf16 on a one-card mesh, held against the same cell
+    run for real on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun, roofline as rl
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+    total = torch.cuda.get_device_properties(0).total_memory
+    if dryrun.HBM_PER_CHIP != total:
+        raise AssertionError(f"dryrun.HBM_PER_CHIP {dryrun.HBM_PER_CHIP} != "
+                             f"the card's total_memory {total}")
+    cfg = get_config(LM_ARCH)
+    mesh = make_host_mesh(device="cuda")
+    rules = shd.make_rules(mesh)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    B, L = PREFILL_BATCH, PREFILL_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    opt = adamw(3e-4)
+    step = make_train_step(model, opt, grad_accum=cfg.grad_accum)
+    state = {}
+
+    def nbytes(*trees):
+        return sum(t.nbytes for tree in trees for t in shd.tree_leaves(tree))
+
+    def run_prefill():
+        model.prefill_fn(params, {"tokens": tokens})
+
+    def run_train():
+        step(params, state["opt"], {"tokens": tokens, "labels": labels}, 0)
+
+    out = {}
+    for kind, run in (("prefill", run_prefill), ("train", run_train)):
+        trace, secs = dryrun._lower_one(cfg, kind, L, B, mesh, rules)
+        model_flops = rl.model_flops_estimate(cfg, kind, L, B)
+        roof = rl.analyze(trace, mesh.size, model_flops)
+        if kind == "train":
+            state["opt"] = opt.init(params)
+            held = nbytes(params, state["opt"]) + tokens.nbytes \
+                + labels.nbytes + 4             # + the step scalar
+        else:
+            held = nbytes(params) + tokens.nbytes
+        if trace["argument"] != held:
+            raise AssertionError(f"dry run {kind}: memory.argument "
+                                 f"{trace['argument']} != the {held} bytes "
+                                 f"the run holds")
+        run()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, iters=1 if kind == "train" else 3, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        if ms < roof.t_bound * 1e3:
+            raise AssertionError(f"dry run {kind}: {ms:.3f} ms on the card "
+                                 f"beats t_bound {roof.t_bound * 1e3:.3f}")
+        if trace["flops"] < model_flops:
+            raise AssertionError(f"dry run {kind}: traced FLOPs "
+                                 f"{trace['flops']} < model FLOPs "
+                                 f"{model_flops}")
+        temp = trace["temp_bytes"] // mesh.size
+        out[kind] = {
+            "trace s": secs, "ms": ms, "t_bound ms": roof.t_bound * 1e3,
+            "bottleneck": roof.bottleneck,
+            "t_compute ms": roof.t_compute * 1e3,
+            "t_memory ms": roof.t_memory * 1e3,
+            "traced flops": trace["flops"], "model flops": model_flops,
+            "useful_flops_ratio": roof.useful_flops_ratio,
+            "traced bytes": trace["bytes"],
+            "argument bytes (predicted = held)": trace["argument"],
+            "predicted per-device bytes": trace["argument"] + temp
+            + trace["output"] - trace["alias"],
+            "memory_allocated before, bytes": before,
+            "max_memory_allocated, bytes": peak}
+    out["HBM_PER_CHIP"] = total
+    del params, state
+    gc_collect()
+    return out
+
+
+def analysis_path(ops, xbk, gen) -> dict:
+    """The analysis tools and the autotuner on the card (module
+    docstring, step 25)."""
+    t = time.perf_counter()
+    out = {"autotune": autotune_phase(ops, xbk, gen)}
+    out["autotune s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["dry run"] = dryrun_vs_card(ops, gen)
+    out["dry run s"] = time.perf_counter() - t
+    return out
+
+
 def profiled_kernels(fn, reps: int = 1, cpu: bool = True):
     """The device events of ``reps`` calls of ``fn`` under
     ``torch.profiler`` as ``key_averages`` rows, and the span of the calls
@@ -7266,6 +7519,16 @@ def main() -> int:
                 if isinstance(out, dict) else out)
          for part, out in dist.items()}, default=str))
 
+    # -- the analysis tools and the autotuner (step 25): step 24's memory
+    # freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis = analysis_path(ops, xbk, gen)
+    phase_s["analysis path"] = time.perf_counter() - t0
+    print(f"analysis path [{card}], {phase_s['analysis path']:.1f} s: "
+          + json.dumps(analysis))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -7426,6 +7689,9 @@ def main() -> int:
                 if r["kernel"] == "crossbar_bwd" and r.get("codes")]
         if name == "crossbar_train":
             entries[-1]["dx_runs"] = [r["dx_run"] for r in timed]
+        entries[-1]["autotune"] = {
+            what: res[name] for what, res in analysis["autotune"].items()
+            if isinstance(res, dict) and name in res}
         if name in farm_counted:
             entries[-1]["launches_faults_and_farm"] = farm_counted[name]
         entries[-1]["launches_pipeline"] = pipe_counted[name]

@@ -44,8 +44,12 @@ def device_constant(v: float, dtype: torch.dtype,
     IEEE operation on every device (a Python-float divisor may become a
     reciprocal multiply on CUDA).  Making it copies from the host, which a
     CUDA-graph capture forbids, so the step's constants are all made before
-    a capture, by the run that precedes it.  Callers never write to it."""
-    return torch.tensor(v, dtype=dtype, device=device)
+    a capture, by the run that precedes it.  Callers never write to it.
+    Under a ``FakeTensorMode`` (the dry run's trace) the constant is still
+    made real, so the cache never holds a fake tensor."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return torch.tensor(v, dtype=dtype, device=device)
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ _build.py    nvcc build into build/kernels/, keyed on the sources' hash,
              loaded with ctypes
 ops.py       the public wrappers: kernel on CUDA tensors, plain version on
              CPU tensors, a launch count on each; the differentiable
-             ``crossbar_matmul``; ``kmeans_assign``; ``flash_attention``
+             ``crossbar_matmul``; ``kmeans_assign``; ``flash_attention``;
+             the crossbar tile autotuner ``block_config`` and its table
 ref.py       torch oracles mirroring ``repro.kernels.ref``
 
 Importing any of these needs neither nvcc nor a card: a library is built

@@ -638,7 +638,8 @@ def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
                           lr: float | torch.Tensor,
                           dy_scale: torch.Tensor | None = None,
                           max_dw: float = 0.05, levels: int = 128,
-                          w_max: float = 1.0, compute_y: bool = False
+                          w_max: float = 1.0, compute_y: bool = False,
+                          tile: int | None = None
                           ) -> tuple[torch.Tensor, ...]:
     """Launch the fused CUDA kernel: g± (T, K, N); xs (T, M, K); ds
     (T, M, N) -> (ys, dxs, g+', g-') as :func:`crossbar_train_plain`, the
@@ -649,7 +650,10 @@ def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
     ``dy_scale``; ``lr`` is a one-element fp32 tensor on the same device
     (read by the kernel, so a CUDA graph replays with a new value) or a
     Python float (rounded once to a cached fp32 constant).  ``max_dw /
-    levels`` is formed in double and rounded once to fp32."""
+    levels`` is formed in double and rounded once to fp32.  ``tile``
+    indexes ``OUTER_PRODUCT_TILES`` (the update walk's, which sets the dx
+    blocks' size); by default the shape picks it (every tile gives the
+    same bits)."""
     kind = _dy_kind(ds, dy_scale)
     for name, t in (("g_plus", g_plus), ("g_minus", g_minus), ("xs", xs)):
         _check_operand(name, t, ds)
@@ -662,7 +666,11 @@ def crossbar_train_kernel(g_plus: torch.Tensor, g_minus: torch.Tensor,
     if N > MAX_N_TRAIN:
         raise ValueError(f"the fused kernel holds at most {MAX_N_TRAIN} "
                          f"columns per core, got N={N}")
-    tile = outer_product_tile(T, M, K, N, ds.element_size())
+    if tile is None:
+        tile = outer_product_tile(T, M, K, N, ds.element_size())
+    if not 0 <= tile < len(OUTER_PRODUCT_TILES):
+        raise ValueError(f"tile must index OUTER_PRODUCT_TILES "
+                         f"(0..{len(OUTER_PRODUCT_TILES) - 1}), got {tile}")
     dx_run = train_dx_run(M, tile)
     if train_blocks(T, M, K, N, tile, dx_run, compute_y) > MAX_GRID_X:
         raise ValueError(f"grid too large: M={M}, K={K}, N={N}")

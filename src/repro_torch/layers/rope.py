@@ -28,10 +28,14 @@ def _rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
     theta 1e4, 1e6 and 5e6 (torch's fp32 pow is an ulp off it in some
     bands, e.g. band 37 at hd 128 and theta 1e6).  They are computed on the
     host, so no device's pow enters, and moved to ``device`` once per
-    (dim, theta, device); callers never write to them."""
-    exponents = torch.arange(0, dim, 2, dtype=torch.float32) / dim
-    freqs = 1.0 / (theta ** exponents.double()).float()
-    return freqs.to(device)
+    (dim, theta, device); callers never write to them.  Under a
+    ``FakeTensorMode`` (the dry run's trace) they are still made real, so
+    the cache never holds a fake tensor."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        exponents = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+        freqs = 1.0 / (theta ** exponents.double()).float()
+        return freqs.to(device)
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float
