@@ -156,7 +156,9 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     0 before and read after: 24 launches, all on the CUDA-core kernel in
     the chunked function, and its time;
 11. LM decode against prefill at full width: ``BatchedServer(batch=4,
-    max_len=256)`` serves ``launch/serve.py``'s 8-token prompts with
+    max_len=256)``, its decode step one captured CUDA graph (the warm-up
+    call runs it on a side stream and captures it, every later step
+    replays it), serves ``launch/serve.py``'s 8-token prompts with
     ``max_new=32`` (39 steps, 128 tokens), its decode logits recorded and
     its flash launches counted (0: the server only decodes, and decode
     attention is plain); ``prefill_fn`` on each slot's prompt + generated
@@ -164,7 +166,25 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     and 1e-3 in float32 compute with a float32 cache (its prefill on the
     fp32 kernel, also in the chunked function), and every generated
     token must be the prefill argmax except where its top-2 gap lies within
-    that bar (counted); decode ms per step, tokens/s and a profiled step;
+    that bar (counted); decode ms per step, tokens/s and a profiled step.
+    Then, per compute and cache dtype, ``graph_session``: (a) the same
+    session on a server decoding eagerly (``server.decode =
+    model.decode_fn``) must equal
+    the captured one bit for bit — every step's logits (all columns),
+    every generated token and the cache after the session; (b) a second
+    ``generate`` on the captured server replays without a new capture
+    (one capture a server across both calls); (c) ms per step and
+    tokens/s by CUDA events, eager beside captured (the captured first
+    session, with its warm-up and capture, apart); (d) one replay under
+    the profiler (span, device busy time, idle share) and the graph's
+    private pool size.  (e) The crossbar kernel mode (``crossbar=True,
+    xbar_use_kernel=True``, bf16) serves the same prompts through the
+    captured step: 168 ``crossbar_fwd`` launches a replay (7 projections
+    x 24 layers; the tied head plain), 39 x 168 in each session and no
+    bwd, dw or flash launch, layer 0's 7 warm-up launches held against
+    their plain versions within 1e-5 of sum_k |x_k||w_k| and timed at the
+    decode shapes, logits finite, and (a)-(d) as above (no decode-vs-
+    prefill bar: the activations' fake-quant scale is one per call);
 12. faulted chip: ``build_chip("mnist_class", faults=MemristorFaults(
     stuck_on=0.0025, stuck_off=0.01, variation_sigma=0.05, seed=0))``
     (``compiled=True`` asked for): its injected stacks equal the plain
@@ -469,6 +489,15 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     ``model_flops_estimate``, and ``dryrun.HBM_PER_CHIP`` is the card's
     ``total_memory``; the predicted per-device bytes are printed beside
     ``torch.cuda.max_memory_allocated()``;
+    Steps 19-23 (b) serve through the captured server as step 11 does,
+    their decode-vs-prefill bars unchanged, and run ``graph_session``
+    ((a)-(d) of step 11) per compute and cache dtype; in the encoder-
+    decoder the cross cache is set on each server after it is built, and
+    after the profiled replay set again with halved values: the next
+    step captures again (2 captures) and it and the replay after it equal
+    eager decode on a copy of the cache bit for bit; in the MoE family every step's routing is held too (a
+    replay appends clones of the records its capture made: one
+    ``Routing`` a moe layer a step);
 26. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
@@ -479,7 +508,10 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
     ``flash_attention_simt``; the crossbar kernels' ``launches`` include
-    steps 12-18 and 20-23, broken down in ``launches_faults_and_farm``,
+    steps 11 (e), 12-18 and 20-23, broken down in ``launches_decode``
+    (``crossbar_fwd``, with ``decode_launches_per_replay``,
+    ``decode_layer0_rel_err`` and ``decode_shapes``),
+    ``launches_faults_and_farm``,
     ``launches_pipeline``, ``launches_lm_train``, ``launches_moe``,
     ``launches_ssm``, ``launches_encdec`` and ``launches_vlm``, with
     mamba2's, seamless's and qwen2-vl's projection shapes in
@@ -619,15 +651,18 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
 
 
 def bound(T, M, K, N, kernel: str = "crossbar_fwd",
-          dy_bytes: int = 4) -> tuple[float, float]:
+          dy_bytes: int = 4, in_bytes: int = 4) -> tuple[float, float]:
     """(ms at the fp32 rate, ms at the HBM rate) for one launch: each input
     byte read once and each output byte written once.  ``dy_bytes`` is the
-    size of one error element (1 for int8 codes)."""
-    if kernel in ("crossbar_fwd", "crossbar_bwd"):
+    size of one error element (1 for int8 codes); ``in_bytes`` that of one
+    x and g± element as the forward's wrapper receives them (2 for bf16
+    operands, which the wrapper widens to fp32 before the launch)."""
+    if kernel == "crossbar_fwd":
         flops = 2.0 * T * M * K * N + T * K * N    # products + delta
-        act = M * K * 4 + M * N * (dy_bytes if kernel == "crossbar_bwd"
-                                   else 4)
-        nbytes = T * (act + 2 * K * N * 4)
+        nbytes = T * (M * K * in_bytes + M * N * 4 + 2 * K * N * in_bytes)
+    elif kernel == "crossbar_bwd":
+        flops = 2.0 * T * M * K * N + T * K * N
+        nbytes = T * (M * K * 4 + M * N * dy_bytes + 2 * K * N * 4)
     elif kernel == "crossbar_dw":
         flops = 2.0 * T * M * K * N
         nbytes = T * (M * K * 4 + M * N * dy_bytes + K * N * 4)
@@ -771,7 +806,9 @@ def kernel_phase(xbk, ops, gen) -> tuple[float, list[dict]]:
 
 
 def time_shape(xbk, app, xs, gp, gm, iters: int = 20,
-               device: bool = True) -> dict:
+               device: bool = True, in_bytes: int = 4) -> dict:
+    """``time_row`` of the forward on ``xs``, ``gp``, ``gm`` (fp32, as the
+    launch gets them); ``in_bytes`` as in ``bound``, recorded in the row."""
     T, M, K = xs.shape
     N = gp.shape[2]
     return with_device_ms(time_row("crossbar_fwd", T, M, K, N, {
@@ -779,7 +816,7 @@ def time_shape(xbk, app, xs, gp, gm, iters: int = 20,
         "plain_ms": lambda: xbk.crossbar_fwd_plain(xs, gp, gm,
                                                    activation=False),
         "library_ms": lambda: torch.bmm(xs, gp - gm),
-    }, iters=iters, app=app), lambda: xbk.crossbar_fwd_kernel(
+    }, iters=iters, in_bytes=in_bytes, app=app), lambda: xbk.crossbar_fwd_kernel(
         xs, gp, gm, activation=False),
         lambda: torch.bmm(xs, gp - gm), xbk.row_product_tile(T, M, K, N),
         device)
@@ -875,11 +912,13 @@ def train_kernel_phase(xbk, ops, gen) -> tuple[dict, list[dict]]:
 
 
 def time_row(kernel, T, M, K, N, fns, dy_bytes=4, iters: int = 20,
-             **extra) -> dict:
+             in_bytes: int = 4, **extra) -> dict:
     """CUDA-event times of ``fns`` (name -> callable) over ``iters`` calls
     beside the bound."""
-    flop_ms, byte_ms = bound(T, M, K, N, kernel, dy_bytes)
+    flop_ms, byte_ms = bound(T, M, K, N, kernel, dy_bytes, in_bytes)
     row = {"kernel": kernel, "T": T, "M": M, "K": K, "N": N, **extra}
+    if in_bytes != 4:
+        row["in_bytes"] = in_bytes
     row.update({k: cuda_ms(f, iters=iters, warmup=min(3, iters))
                 for k, f in fns.items()})
     row.update(bound_ms=max(flop_ms, byte_ms),
@@ -3191,40 +3230,29 @@ def fak_routes() -> dict[str, int]:
 
 def decode_against_prefill(ops, model, params, BatchedServer,
                            compute: str) -> dict:
-    """``BatchedServer`` serves the CLI's prompts (39 steps, 128 tokens),
-    recording each step's logits; then ``prefill_fn`` on every slot's
-    prompt + generated tokens.  The decode logits at each of the 39
-    positions must equal the prefill logits within LOGIT_BAR[compute], and
-    each generated token the prefill argmax, except where the prefill's
-    top-2 gap lies within the bar (counted).  ``compute`` float32 runs a
-    float32 cache.  Returns the numbers, with decode times."""
+    """``BatchedServer`` (its captured decode step) serves the CLI's
+    prompts (39 steps, 128 tokens), recording each step's logits; then
+    ``prefill_fn`` on every slot's prompt + generated tokens.  The decode
+    logits at each of the 39 positions must equal the prefill logits
+    within LOGIT_BAR[compute], and each generated token the prefill
+    argmax, except where the prefill's top-2 gap lies within the bar
+    (counted).  ``compute`` float32 runs a float32 cache.  Then
+    ``graph_session``: the captured session equal to an eager one bit for
+    bit, one capture across two ``generate`` calls, both timed, a
+    profiled replay.  Returns the numbers, with decode times."""
     cfg = model.cfg
     dtype = getattr(torch, compute)
     prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
                for i in range(SERVE_BATCH)]      # launch/serve.py's prompts
 
     def serve():
-        server = BatchedServer(model, params, batch=SERVE_BATCH,
-                               max_len=SERVE_MAX_LEN, cache_dtype=dtype)
-        rec = []
+        return serve_session(model, params, BatchedServer, prompts,
+                             SERVE_NEW, SERVE_MAX_LEN, dtype)
 
-        def recording(p, cache, batch):
-            logits, cache = model.decode_fn(p, cache, batch)
-            rec.append(logits[:, -1].clone())
-            return logits, cache
-
-        server.decode = recording
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs = server.generate(prompts, SERVE_NEW)
-        end.record()
-        end.synchronize()
-        return server, outs, rec, start.elapsed_time(end)
-
-    serve()                                   # warm-up
+    serve()                          # warm-up (a server and capture apart)
     zero_flash_counts(ops)
-    server, outs, rec, total_ms = serve()
+    run = serve()
+    server, outs, total_ms = run["server"], run["outs"], run["ms"]
     serve_launches = ops.flash_attention.launches   # decode only: 0
     steps, toks = server.stats.steps, server.stats.tokens_out
     if (steps, toks) != (8 + SERVE_NEW - 1, SERVE_BATCH * SERVE_NEW):
@@ -3238,7 +3266,7 @@ def decode_against_prefill(ops, model, params, BatchedServer,
     launches = ops.flash_attention.launches
     route = "wgmma" if compute == "bfloat16" else "simt"
     check_flash_counts(ops, cfg.n_layers, route, "the check's prefill")
-    dec = torch.stack(rec, dim=1)                        # (B, 39, V)
+    dec = run["dec_all"]                                 # (B, 39, V)
     pre = full[:, :steps]
     err = (dec - pre).abs()[..., :cfg.vocab_size]
     bar = LOGIT_BAR[compute]
@@ -3253,12 +3281,15 @@ def decode_against_prefill(ops, model, params, BatchedServer,
     if bool((off & (gap > bar)).any()):
         raise AssertionError(f"decode ({compute}): a generated token is "
                              f"not the prefill argmax away from a near-tie")
-    # one more decode step of the served batch under the profiler: where a
-    # step's time goes (it appends to the served cache, which has room)
+    graph = graph_session(run, BatchedServer, f"{LM_ARCH}, {compute}")
+    # one more eager decode step of the served batch under the profiler:
+    # where a step's time goes (it appends to the served cache, which has
+    # room)
     step_batch = {"tokens": seqs[:, -1:], "length": steps}
     prof = profile_device(lambda: model.decode_fn(params, server.cache,
                                                   step_batch))
-    out = {"compute": compute, "max |decode - prefill| logit":
+    out = {"compute": compute, "captured decode": graph,
+           "max |decode - prefill| logit":
            float(err.max()), "bar": bar,
            "tokens excused as near-ties": int(off.sum()),
            "positions with a top-2 gap within the bar": int(
@@ -3277,17 +3308,334 @@ def decode_against_prefill(ops, model, params, BatchedServer,
           f"{out['max |decode - prefill| logit']:.3e} (bar {bar}); "
           f"{out['tokens excused as near-ties']} generated tokens differ "
           f"from the prefill argmax, all at near-ties; "
-          f"{out['decode ms per step']:.3f} ms per step, "
+          f"{out['decode ms per step']:.3f} ms per step (the captured "
+          f"server's first session), "
           f"{out['decode tokens/s']:.1f} tokens/s; {serve_launches} "
           f"flash_attention launches while serving (decode attention is "
-          f"plain); one step under the "
+          f"plain); one eager step under the "
           f"profiler: {prof['span_ms']:.3f} ms span, device busy "
           f"{ms3(prof['device_busy_ms'])} ms, idle share "
           f"{ms3(prof['device_idle_share'])}")
     return out
 
 
-def lm_path(ops) -> dict:
+# ---------------------------------------------------------------------------
+# The captured decode step (steps 11 and 19-23): one CUDA graph a server
+# ---------------------------------------------------------------------------
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` hold the same bits: dtype, shape and every
+    byte."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        (a.reshape(-1).view(torch.uint8)
+         == b.reshape(-1).view(torch.uint8)).all())
+
+
+def cache_snapshot(server) -> list[torch.Tensor]:
+    """A server's cache leaves, cloned (``tree_map``'s order)."""
+    from repro_torch.dist.sharding import tree_leaves
+    return [t.clone() for t in tree_leaves(server.cache)]
+
+
+def record_steps(server, rec: list, routes: list | None = None) -> None:
+    """Wrap the server's own decode step (its captured graph, or its eager
+    step): each step's last-position logits are cloned into ``rec`` (a
+    replay's output buffer is overwritten by the next), and with
+    ``routes`` the step's ``layers.moe.ROUTING`` records appended to it
+    (one ``Routing`` a moe layer)."""
+    from repro_torch.layers import moe
+    step = server.decode
+
+    def recording(p, cache, batch):
+        if routes is None:
+            logits, cache = step(p, cache, batch)
+        else:
+            moe.ROUTING = []
+            try:
+                logits, cache = step(p, cache, batch)
+                routes.append(moe.ROUTING)
+            finally:
+                moe.ROUTING = None
+        rec.append(logits[:, -1].clone())
+        return logits, cache
+
+    server.decode = recording
+
+
+def timed_generate(server, prompts, new: int) -> tuple[list, float]:
+    """``server.generate(prompts, new)`` and its ms (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = server.generate(prompts, new)
+    end.record()
+    end.synchronize()
+    return outs, start.elapsed_time(end)
+
+
+def serve_session(model, params, BatchedServer, prompts, new: int,
+                  max_len: int, dtype, prepare=None,
+                  routing: bool = False, eager: bool = False) -> dict:
+    """One served session on a new ``BatchedServer`` (its captured decode
+    step; with ``eager``, ``server.decode = model.decode_fn``;
+    ``prepare(server)`` first, as filling a cross cache): its steps'
+    logits (all columns), routing, tokens, ms, and its cache after the
+    session.  The shared record of steps 11 and 19-23, which
+    ``graph_session`` holds against an eager run."""
+    server = BatchedServer(model, params, batch=SERVE_BATCH, max_len=max_len,
+                           cache_dtype=dtype)
+    if eager:
+        server.decode = model.decode_fn
+    if prepare is not None:
+        prepare(server)
+    rec, routes = [], ([] if routing else None)
+    record_steps(server, rec, routes)
+    outs, ms = timed_generate(server, prompts, new)
+    return {"server": server, "outs": outs, "ms": ms,
+            "dec_all": torch.stack(rec, dim=1), "dec_routes": routes,
+            "cache_after": cache_snapshot(server),
+            "session": dict(model=model, params=params, prompts=prompts,
+                            new=new, max_len=max_len, dtype=dtype,
+                            prepare=prepare, routing=routing)}
+
+
+def graph_session(run: dict, BatchedServer, what: str) -> dict:
+    """The captured server of ``run`` (``serve_session``) against eager
+    decode: (a) a second session on a new server decoding eagerly
+    (``server.decode = model.decode_fn``), the same inputs, must equal
+    the captured one bit for bit — every
+    step's logits (all columns), every token, the cache after the session
+    and, for a MoE model, every step's routing; (b) a second ``generate``
+    on the captured server replays without a new capture: one capture a
+    server across both calls; (c) ms per step and tokens/s (CUDA events
+    around ``generate``) of the eager session, the captured first session
+    (warm-up and capture included) and the captured second (replays
+    only); (d) one replay under the profiler: span, device busy time and
+    idle share; and the bytes of the graph's private memory pool.  Then,
+    where ``prepare`` replaced cache leaves (the encoder-decoder's cross
+    cache), it replaces them again with other values (new tensors, half
+    the old): the next call captures again and the replay after it equals
+    eager decode on a copy of the cache bit for bit, so the graph reads
+    the new leaves, never stale ones.  A difference or a capture more than
+    these raises."""
+    from repro_torch.kernels import ops as kops
+    sess, server = run["session"], run["server"]
+    if server.captures != 1:
+        raise AssertionError(f"{what}: {server.captures} captures in the "
+                             f"first session, expected 1")
+    eager = serve_session(**sess, BatchedServer=BatchedServer, eager=True)
+    if eager["server"].captures != 0:
+        raise AssertionError(f"{what}: the eager server captured")
+    diffs = []
+    steps = run["dec_all"].shape[1]
+    for t in range(steps):
+        if not bits_equal(run["dec_all"][:, t], eager["dec_all"][:, t]):
+            diffs.append(f"logits of step {t}")
+            break
+    if run["outs"] != eager["outs"]:
+        diffs.append("tokens")
+    bad = [i for i, (a, b) in enumerate(zip(run["cache_after"],
+                                            eager["cache_after"]))
+           if not bits_equal(a, b)]
+    if bad or len(run["cache_after"]) != len(eager["cache_after"]):
+        diffs.append(f"cache leaves {bad}")
+    if sess["routing"]:
+        for t, (got, want) in enumerate(zip(run["dec_routes"],
+                                            eager["dec_routes"])):
+            if len(got) != len(want) or not all(
+                    bits_equal(getattr(a, f), getattr(b, f))
+                    for a, b in zip(got, want)
+                    for f in ("top_i", "margin", "kept")):
+                diffs.append(f"routing of step {t}")
+                break
+    if diffs:
+        raise AssertionError(f"{what}: the captured session differs from "
+                             f"the eager one in {diffs}")
+    # (b), (c): a second session on the captured server, replays only
+    server.decode = server.step
+    rec2, routes2 = [], ([] if sess["routing"] else None)
+    record_steps(server, rec2, routes2)
+    counts0 = {n: getattr(kops, n).launches for n in XB_NAMES}
+    outs2, ms2 = timed_generate(server, sess["prompts"], sess["new"])
+    launches2 = {n: getattr(kops, n).launches - counts0[n]
+                 for n in XB_NAMES}
+    captures = server.captures
+    if captures != 1:
+        raise AssertionError(f"{what}: {captures} captures across two "
+                             f"generate calls, expected 1")
+    if routes2 is not None and any(len(r) != len(run["dec_routes"][0])
+                                   for r in routes2):
+        raise AssertionError(f"{what}: a replay left "
+                             f"{[len(r) for r in routes2]} routing records"
+                             f" a step, expected one a moe layer")
+    if not bool(torch.isfinite(torch.stack(rec2)[..., :sess[
+            "model"].cfg.vocab_size]).all()):
+        raise AssertionError(f"{what}: replayed logits not finite")
+    # (d): one replay under the profiler
+    step_batch = {"tokens": torch.tensor(outs2, dtype=torch.int32,
+                                         device="cuda")[:, -1:],
+                  "length": torch.full((), steps, dtype=torch.int32,
+                                       device="cuda")}
+    prof = profile_device(lambda: server.step(sess["params"], server.cache,
+                                              step_batch), reps=1)
+    pool = server.step.pool_bytes()
+    replaced = None
+    if sess["prepare"] is not None:
+        replaced = replaced_leaves_read(server, sess, steps + 1, what)
+    toks = len(sess["prompts"]) * sess["new"]
+    out = {"captures across two generate calls": captures,
+           "captured == eager bit for bit":
+               f"{steps} steps' logits, tokens, "
+               f"{len(run['cache_after'])} cache leaves"
+               + (", routing" if sess["routing"] else ""),
+           "steps": steps,
+           "eager ms per step": eager["ms"] / steps,
+           "eager tokens/s": toks / eager["ms"] * 1e3,
+           "captured ms per step (first session: warm-up, capture, "
+           "replays)": run["ms"] / steps,
+           "captured ms per step": ms2 / steps,
+           "captured tokens/s": toks / ms2 * 1e3,
+           "speed-up (eager / captured)": eager["ms"] / ms2,
+           "crossbar launches in the second session": launches2,
+           "launches per replay": dict(server.step.graph.per_replay),
+           "graph pool GB": None if pool is None else pool / 1e9,
+           "replay profile": prof}
+    if replaced is not None:
+        out["replaced cache leaves"] = replaced
+    print(f"captured decode ({what}): {captures} capture across two "
+          f"generate calls; captured == eager bit for bit "
+          f"({out['captured == eager bit for bit']}); ms per step: "
+          f"captured {out['captured ms per step']:.3f} (first session "
+          f"{run['ms'] / steps:.3f}), eager "
+          f"{out['eager ms per step']:.3f}; tokens/s captured "
+          f"{out['captured tokens/s']:.1f}, eager "
+          f"{out['eager tokens/s']:.1f}; one replay under the profiler: "
+          f"{prof['span_ms']:.3f} ms span, busy "
+          f"{ms3(prof['device_busy_ms'])} ms, idle share "
+          f"{ms3(prof['device_idle_share'])}; graph pool "
+          f"{ms3(out['graph pool GB'])} GB [{card_line()}]"
+          + ("" if replaced is None else
+             f"; {replaced['leaves']} cache leaves replaced: "
+             f"{replaced['captures']} captures, the replays after equal "
+             f"eager bit for bit"))
+    return out
+
+
+def replaced_leaves_read(server, sess, length: int, what: str) -> dict:
+    """``graph_session``'s last check: ``prepare(server)`` replaces its
+    cache leaves with new tensors, halved here so a stale read would
+    show; two decode steps (lengths ``length`` and ``length + 1``) through the captured
+    step — the first captures again, the second replays — each equal bit
+    for bit to ``decode_fn`` on a copy of the cache."""
+    from repro_torch.dist.sharding import tree_leaves, tree_map
+    before = tree_leaves(server.cache)
+    sess["prepare"](server)
+    new = [t for t, b in zip(tree_leaves(server.cache), before)
+           if t is not b]
+    for t in new:
+        t.mul_(0.5)
+    eager = tree_map(torch.clone, server.cache)
+    tokens = torch.arange(1, SERVE_BATCH + 1, dtype=torch.int32,
+                          device="cuda")[:, None]
+    captures = []
+    for t in range(2):
+        batch = {"tokens": tokens + t,
+                 "length": torch.full((), length + t, dtype=torch.int32,
+                                      device="cuda")}
+        want, eager = sess["model"].decode_fn(sess["params"], eager, batch)
+        got, server.cache = server.step(sess["params"], server.cache, batch)
+        captures.append(server.captures)
+        if not bits_equal(got, want):
+            raise AssertionError(f"{what}: after {len(new)} cache leaves "
+                                 f"were replaced, step {t} differs from "
+                                 f"eager decode")
+    if captures != [2, 2]:
+        raise AssertionError(f"{what}: captures {captures} after the "
+                             f"replaced leaves, expected [2, 2]")
+    if not new or any(not bits_equal(a, b) for a, b in zip(
+            tree_leaves(server.cache), tree_leaves(eager))):
+        raise AssertionError(f"{what}: {len(new)} leaves replaced, or the "
+                             f"cache differs from eager decode's")
+    return {"leaves": len(new), "captures": server.captures,
+            "steps equal to eager bit for bit": 2}
+
+
+def lm_decode_kernel_mode(ops, xbk, BatchedServer) -> dict:
+    """Step 11 (e): qwen2-0.5b at full width in the crossbar kernel mode
+    (``crossbar=True, xbar_use_kernel=True``), bf16 compute and cache:
+    every projection of a decode step runs the hand-written
+    ``crossbar_fwd`` (7 a layer, 168 a step; the tied head stays plain).
+    The captured server serves the CLI's prompts (39 steps), the counts
+    at 0 before and read after: the capture records 168 ``crossbar_fwd``
+    launches a replay, the session 39 x 168 (the warm-up's and 38
+    replays'), no bwd, dw or flash launch; logits finite, pad columns
+    -1e30.  The warm-up's layer-0 launches (its first 7) are held against
+    their plain versions within XB_BAR of sum_k |x_k||w_k| and timed at
+    the decode shapes (kernel, plain, ``torch.bmm``, the bound); then
+    ``graph_session``, whose second session must launch 39 x 168 again.
+    No decode-vs-prefill bar: the activations' fake-quant scale is one per
+    call, a prefill's over the whole sequence, a decode step's over its
+    batch of tokens, so the two quantize differently by design."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH, crossbar=True, xbar_use_kernel=True)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
+               for i in range(SERVE_BATCH)]
+    per_step = XB_PROJECTIONS * cfg.n_layers
+    zero_lm_counts(ops)
+    with Layer0Recorder(xbk, XB_PROJECTIONS) as rec:
+        run = serve_session(model, params, BatchedServer, prompts,
+                            SERVE_NEW, SERVE_MAX_LEN, torch.bfloat16)
+    launches = {n: getattr(ops, n).launches for n in XB_NAMES}
+    steps = run["dec_all"].shape[1]
+    per_replay = dict(run["server"].step.graph.per_replay)
+    want = {"crossbar_fwd": steps * per_step, "crossbar_bwd": 0,
+            "crossbar_dw": 0}
+    if per_replay != {"crossbar_fwd": per_step} or launches != want or \
+            ops.flash_attention.launches:
+        raise AssertionError(f"kernel-mode decode: {per_replay} a replay, "
+                             f"{launches} in {steps} steps (and "
+                             f"{ops.flash_attention.launches} flash), "
+                             f"expected {per_step} crossbar_fwd a replay, "
+                             f"{want}")
+    dec = run["dec_all"]
+    if not bool(torch.isfinite(dec[..., :cfg.vocab_size]).all()) or \
+            not bool((dec[..., cfg.vocab_size:] == -1e30).all()):
+        raise AssertionError("kernel-mode decode logits not finite, or pad "
+                             "columns not -1e30")
+    errs = check_layer0_launches(xbk, rec)
+    # the wrapper receives x and g± in the compute dtype (bf16) and widens
+    # them to fp32 before the launch: the function's bound counts them at
+    # the compute dtype's size
+    rows = lm_crossbar_rows(xbk, rec, in_bytes=torch.finfo(
+        getattr(torch, cfg.compute_dtype)).bits // 8)
+    del rec
+    graph = graph_session(run, BatchedServer,
+                          f"{LM_ARCH}, crossbar kernel mode, bfloat16")
+    second = graph["crossbar launches in the second session"]
+    if second != want:
+        raise AssertionError(f"kernel-mode decode, second session: "
+                             f"{second}, expected {want}")
+    out = {"launches": launches, "crossbar_fwd launches per replay":
+           per_replay["crossbar_fwd"], "steps": steps,
+           "launches in step 11 (e)": {n: getattr(ops, n).launches
+                                       for n in XB_NAMES},
+           "layer-0 launches vs plain, max |err| / sum |x||w|": errs,
+           "captured decode": graph, "rows": rows}
+    print(f"decode in crossbar kernel mode ({LM_ARCH} full width, bf16 "
+          f"compute and cache): {per_replay['crossbar_fwd']} crossbar_fwd "
+          f"launches a replay ({XB_PROJECTIONS} projections x "
+          f"{cfg.n_layers} layers), {json.dumps(launches)} in {steps} "
+          f"steps, the second session {json.dumps(second)}; layer 0's "
+          f"launches vs plain (max |err| / sum |x||w|, bar {XB_BAR}) "
+          f"{json.dumps(errs)}")
+    print_crossbar_rows(rows)
+    return out
+
+
+def lm_path(ops, xbk) -> dict:
     """The LM serving path (module docstring, steps 11-12)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3306,6 +3654,9 @@ def lm_path(ops) -> dict:
     out["flash_attention launches serving"] = sum(
         out[d]["flash_attention launches in BatchedServer.generate"]
         for d in ("decode bf16", "decode fp32"))
+    del model, model32, params
+    out["decode kernel mode"] = lm_decode_kernel_mode(ops, xbk,
+                                                      BatchedServer)
     return out
 
 
@@ -4350,16 +4701,18 @@ def check_layer0_launches(xbk, rec) -> dict:
 
 
 def lm_crossbar_rows(xbk, rec, app: str = "qwen2-0.5b", iters: int = 20,
-                     device: bool = True) -> list[dict]:
+                     device: bool = True, in_bytes: int = 4) -> list[dict]:
     """Kernel / plain / ``torch.bmm`` times over ``iters`` calls (and,
     with ``device``, device times) of the recorded layer-0 launches at
-    each distinct LM shape, beside the bound."""
+    each distinct LM shape, beside the bound (the forward's with x and g±
+    at ``in_bytes`` each, as its wrapper received them)."""
     rows, seen = [], set()
     for (xs, gp, gm), _, _ in rec.fwd:
         key = ("crossbar_fwd",) + tuple(xs.shape) + (gp.shape[2],)
         if key not in seen:
             seen.add(key)
-            rows.append(time_shape(xbk, app, xs, gp, gm, iters, device))
+            rows.append(time_shape(xbk, app, xs, gp, gm, iters, device,
+                                   in_bytes))
     for (dys, gp, gm), kw, _ in rec.bwd:
         key = ("crossbar_bwd",) + tuple(dys.shape) + (gp.shape[1],)
         if key not in seen:
@@ -4776,10 +5129,11 @@ def hybrid_prefill(ops, model, params) -> dict:
 
 
 def hybrid_serve(ops, model, params, BatchedServer) -> dict:
-    """``BatchedServer(batch=4)`` serves ``launch/serve.py``'s 8-token
-    prompts with ``max_new=16`` (23 steps, the local layers' rolling
-    buffers of 64 slots) in the model's compute dtype and a cache of it,
-    its decode logits recorded; then ``prefill_fn`` on each slot's prompt
+    """``BatchedServer(batch=4)`` (its captured decode step,
+    ``serve_session``) serves ``launch/serve.py``'s 8-token prompts with
+    ``max_new=16`` (23 steps, the local layers' rolling buffers of 64
+    slots) in the model's compute dtype and a cache of it, its decode
+    logits recorded; then ``prefill_fn`` on each slot's prompt
     + generated tokens (a check: its launches, one an attention layer,
     the local layers' windowed, are not the path's).  Returns the decode
     and prefill logits (vocab columns), the sequences, the generated
@@ -4791,23 +5145,10 @@ def hybrid_serve(ops, model, params, BatchedServer) -> dict:
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
     prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
                for i in range(SERVE_BATCH)]
-    server = BatchedServer(model, params, batch=SERVE_BATCH,
-                           max_len=HYBRID_SERVE_MAX_LEN, cache_dtype=dtype)
-    rec = []
-
-    def recording(p, cache, batch):
-        logits, cache = model.decode_fn(p, cache, batch)
-        rec.append(logits[:, -1, :cfg.vocab_size].clone())
-        return logits, cache
-
-    server.decode = recording
     zero_flash_counts(ops)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    outs = server.generate(prompts, HYBRID_SERVE_NEW)
-    end.record()
-    end.synchronize()
+    run = serve_session(model, params, BatchedServer, prompts,
+                        HYBRID_SERVE_NEW, HYBRID_SERVE_MAX_LEN, dtype)
+    server, outs = run["server"], run["outs"]
     launches = ops.flash_attention.launches
     steps, toks = server.stats.steps, server.stats.tokens_out
     if (steps, toks) != (8 + HYBRID_SERVE_NEW - 1,
@@ -4825,10 +5166,9 @@ def hybrid_serve(ops, model, params, BatchedServer) -> dict:
     if windowed != kinds.count("local"):
         raise AssertionError(f"the check's prefill: {windowed} windowed "
                              f"flash launches")
-    return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
-            "seqs": seqs, "outs": outs, "server": server, "steps": steps,
-            "tokens": toks, "ms": start.elapsed_time(end),
-            "launches": launches}
+    return {**run, "dec": run["dec_all"][..., :cfg.vocab_size],
+            "pre": full[:, :steps], "seqs": seqs, "steps": steps,
+            "tokens": toks, "launches": launches}
 
 
 def check_decode(run: dict, bar: float, what: str) -> dict:
@@ -4871,8 +5211,11 @@ def hybrid_decode(ops, model, model32, params, BatchedServer) -> dict:
     run32 = hybrid_serve(ops, model32, params, BatchedServer)
     out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
                                   f"{HYBRID_ARCH} float32")
+    out["float32"]["captured decode"] = graph_session(
+        run32, BatchedServer, f"{HYBRID_ARCH}, float32")
     del run32
     run = hybrid_serve(ops, model, params, BatchedServer)
+    graph = graph_session(run, BatchedServer, f"{HYBRID_ARCH}, bfloat16")
     zero_flash_counts(ops)
     pre32 = model32.prefill_fn(params, {"tokens": run["seqs"]})[
         :, :run["steps"], :cfg.vocab_size]
@@ -4881,6 +5224,7 @@ def hybrid_decode(ops, model, model32, params, BatchedServer) -> dict:
     noise = float((run["pre"] - pre32).abs().max())
     out["bfloat16"] = check_decode(run, max(LOGIT_BAR["bfloat16"], noise),
                                    f"{HYBRID_ARCH} bf16")
+    out["bfloat16"]["captured decode"] = graph
     out["bfloat16"]["max |bf16 prefill - float32 prefill| logit"] = noise
     out["bfloat16"]["max |bf16 decode - float32 prefill| logit"] = float(
         (run["dec"] - pre32).abs().max())
@@ -5127,9 +5471,11 @@ def moe_prefill(ops, model, params) -> dict:
 
 
 def moe_serve(ops, model, params, BatchedServer, new: int) -> dict:
-    """``BatchedServer(batch=4)`` serves ``launch/serve.py``'s 8-token
-    prompts with ``max_new=new`` in the model's compute dtype and a cache
-    of it, its decode logits and routing recorded step by step; then
+    """``BatchedServer(batch=4)`` (its captured decode step,
+    ``serve_session``) serves ``launch/serve.py``'s 8-token prompts with
+    ``max_new=new`` in the model's compute dtype and a cache of it, its
+    decode logits and routing recorded step by step (a replay appends
+    clones of the records its capture made); then
     ``prefill_fn`` on each slot's prompt + generated tokens (a check: its
     launches are not the path's), its routing recorded."""
     from repro_torch.layers import moe
@@ -5138,28 +5484,10 @@ def moe_serve(ops, model, params, BatchedServer, new: int) -> dict:
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
     prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
                for i in range(SERVE_BATCH)]
-    server = BatchedServer(model, params, batch=SERVE_BATCH,
-                           max_len=MOE_SERVE_MAX_LEN, cache_dtype=dtype)
-    rec, routes = [], []
-
-    def recording(p, cache, batch):
-        moe.ROUTING = []
-        try:
-            logits, cache = model.decode_fn(p, cache, batch)
-            routes.append(moe.ROUTING)
-        finally:
-            moe.ROUTING = None
-        rec.append(logits[:, -1, :cfg.vocab_size].clone())
-        return logits, cache
-
-    server.decode = recording
     zero_flash_counts(ops)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    outs = server.generate(prompts, new)
-    end.record()
-    end.synchronize()
+    run = serve_session(model, params, BatchedServer, prompts, new,
+                        MOE_SERVE_MAX_LEN, dtype, routing=True)
+    server, outs = run["server"], run["outs"]
     launches = ops.flash_attention.launches
     steps, toks = server.stats.steps, server.stats.tokens_out
     if (steps, toks) != (8 + new - 1, SERVE_BATCH * new):
@@ -5177,10 +5505,9 @@ def moe_serve(ops, model, params, BatchedServer, new: int) -> dict:
     torch.cuda.synchronize()
     check_flash_counts(ops, cfg.n_layers, route,
                        f"the check's prefill ({cfg.compute_dtype})")
-    return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
-            "dec_routes": routes, "pre_routes": pre_routes,
-            "seqs": seqs, "outs": outs, "server": server, "steps": steps,
-            "tokens": toks, "ms": start.elapsed_time(end),
+    return {**run, "dec": run["dec_all"][..., :cfg.vocab_size],
+            "pre": full[:, :steps], "pre_routes": pre_routes,
+            "seqs": seqs, "steps": steps, "tokens": toks,
             "launches": launches}
 
 
@@ -5270,6 +5597,9 @@ def moe_decode(ops, arch, model, model32, params, BatchedServer) -> dict:
     for compute, m in (("float32", model32), ("bfloat16", model)):
         run = moe_serve(ops, m, params, BatchedServer, MOE_SERVE_NEW[arch])
         out[compute] = moe_check_decode(run, compute, arch)
+        out[compute]["captured decode"] = graph_session(
+            run, BatchedServer, f"{arch} at {m.cfg.n_layers} layers, "
+            f"{compute}")
         if compute == "bfloat16":
             server, seqs, steps = run["server"], run["seqs"], run["steps"]
             step_batch = {"tokens": seqs[:, -1:], "length": steps}
@@ -5490,11 +5820,15 @@ def ssm_decode(ops, model, model32, params, BatchedServer) -> dict:
     run32 = hybrid_serve(ops, model32, params, BatchedServer)
     out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
                                   f"{SSM_ARCH} float32")
+    out["float32"]["captured decode"] = graph_session(
+        run32, BatchedServer, f"{SSM_ARCH}, float32")
     del run32
     run = hybrid_serve(ops, model, params, BatchedServer)
-    check_no_launches(ops, f"{SSM_ARCH} serving")
     out["bfloat16"] = check_decode_in_norm(run, SSM_BF16_DIST,
                                            f"{SSM_ARCH} bf16")
+    out["bfloat16"]["captured decode"] = graph_session(
+        run, BatchedServer, f"{SSM_ARCH}, bfloat16")
+    check_no_launches(ops, f"{SSM_ARCH} serving")
     server, seqs, steps = run["server"], run["seqs"], run["steps"]
     step_batch = {"tokens": seqs[:, -1:], "length": steps}
     prof = profile_device(lambda: model.decode_fn(params, server.cache,
@@ -5792,37 +6126,31 @@ def encdec_serve(ops, model, params, frames, BatchedServer) -> dict:
     launches are not the path's).  Returns the decode and prefill logits
     (vocab columns), the sequences, the generated tokens, the server, its
     time and launches."""
+    from repro_torch.dist.sharding import tree_map
     from repro_torch.models import encdec as ed
     cfg = model.cfg
     dtype = getattr(torch, cfg.compute_dtype)
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
     prompts = [[1 + (i * 7 + j) % (cfg.vocab_size - 1) for j in range(8)]
                for i in range(SERVE_BATCH)]
-    server = BatchedServer(model, params, batch=SERVE_BATCH,
-                           max_len=ENCDEC_SERVE_MAX_LEN, cache_dtype=dtype)
     zero_flash_counts(ops)
     with torch.no_grad():
         enc = ed.encode(cfg, params, frames)
-    server.cache["cross"] = ed.fill_cross_cache(cfg, params, enc, dtype)
+    cross = ed.fill_cross_cache(cfg, params, enc, dtype)
     check_flash_counts(ops, cfg.encoder_layers, route,
                        f"encode for the cross cache ({cfg.compute_dtype})")
     encode_launches = ops.flash_attention.launches
     del enc
-    rec = []
 
-    def recording(p, cache, batch):
-        logits, cache = model.decode_fn(p, cache, batch)
-        rec.append(logits[:, -1, :cfg.vocab_size].clone())
-        return logits, cache
+    def fill(server):
+        # as a caller replaces a cache leaf after building the server
+        server.cache["cross"] = tree_map(torch.clone, cross)
 
-    server.decode = recording
     zero_flash_counts(ops)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    outs = server.generate(prompts, ENCDEC_SERVE_NEW)
-    end.record()
-    end.synchronize()
+    run = serve_session(model, params, BatchedServer, prompts,
+                        ENCDEC_SERVE_NEW, ENCDEC_SERVE_MAX_LEN, dtype,
+                        prepare=fill)
+    server, outs = run["server"], run["outs"]
     launches = ops.flash_attention.launches
     steps, toks = server.stats.steps, server.stats.tokens_out
     if (steps, toks) != (8 + ENCDEC_SERVE_NEW - 1,
@@ -5837,10 +6165,10 @@ def encdec_serve(ops, model, params, frames, BatchedServer) -> dict:
     torch.cuda.synchronize()
     check_flash_counts(ops, cfg.encoder_layers + 2 * cfg.n_layers, route,
                        f"the check's prefill ({cfg.compute_dtype})")
-    return {"dec": torch.stack(rec, dim=1), "pre": full[:, :steps],
-            "seqs": seqs, "outs": outs, "server": server, "steps": steps,
-            "tokens": toks, "ms": start.elapsed_time(end),
-            "launches": launches, "encode launches": encode_launches}
+    return {**run, "dec": run["dec_all"][..., :cfg.vocab_size],
+            "pre": full[:, :steps], "seqs": seqs, "steps": steps,
+            "tokens": toks, "launches": launches,
+            "encode launches": encode_launches}
 
 
 def check_decode_in_norm(run: dict, dist: float, what: str) -> dict:
@@ -5889,11 +6217,18 @@ def encdec_decode(ops, model, model32, params, frames,
     out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
                                   f"{ENCDEC_ARCH} float32")
     out["float32"]["flash launches (encode)"] = run32["encode launches"]
+    out["float32"]["captured decode"] = graph_session(
+        run32, BatchedServer, f"{ENCDEC_ARCH}, float32")
     del run32
     run = encdec_serve(ops, model, params, frames, BatchedServer)
     out["bfloat16"] = check_decode_in_norm(run, ENCDEC_BF16_DIST,
                                            f"{ENCDEC_ARCH} bf16")
     out["bfloat16"]["flash launches (encode)"] = run["encode launches"]
+    zero_flash_counts(ops)
+    out["bfloat16"]["captured decode"] = graph_session(
+        run, BatchedServer, f"{ENCDEC_ARCH}, bfloat16")
+    check_flash_counts(ops, 0, "wgmma", f"{ENCDEC_ARCH} captured and "
+                       f"eager serving")
     for compute, r in out.items():
         if r["flash_attention launches in BatchedServer.generate"]:
             raise AssertionError(f"{ENCDEC_ARCH} {compute}: serving "
@@ -6290,10 +6625,16 @@ def vlm_decode(ops, model, model32, params, BatchedServer) -> dict:
     run32 = hybrid_serve(ops, model32, params, BatchedServer)
     out["float32"] = check_decode(run32, LOGIT_BAR["float32"],
                                   f"{VLM_ARCH} float32")
+    out["float32"]["captured decode"] = graph_session(
+        run32, BatchedServer, f"{VLM_ARCH} at {model.cfg.n_layers} layers, "
+        f"float32")
     del run32
     run = hybrid_serve(ops, model, params, BatchedServer)
     out["bfloat16"] = check_decode_in_norm(run, VLM_BF16_DIST,
                                            f"{VLM_ARCH} bf16")
+    out["bfloat16"]["captured decode"] = graph_session(
+        run, BatchedServer, f"{VLM_ARCH} at {model.cfg.n_layers} layers, "
+        f"bfloat16")
     for compute, r in out.items():
         if r["flash_attention launches in BatchedServer.generate"]:
             raise AssertionError(f"{VLM_ARCH} {compute}: serving launched "
@@ -7304,7 +7645,7 @@ def main() -> int:
     apps = paper_apps_path(ops)
     phase_s["paper-apps path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lm = lm_path(ops)
+    lm = lm_path(ops, xbk)
     phase_s["LM serving path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     faulted = faulted_chip_path(ops, csim, chip_mod, build_chip, PAPER_SPEC,
@@ -7379,7 +7720,7 @@ def main() -> int:
     print(f"kmeans_assign shapes [{card}]: " + json.dumps(km_rows))
     print(f"flash_attention shapes [{card}]: " + json.dumps(fa_rows))
     print(f"LM serving path [{card}]: " + json.dumps(
-        {k: v for k, v in lm.items() if k != "prefill"}))
+        {k: v for k, v in lm.items() if k != "prefill"}, default=str))
     cstep = steppers["compiled"]["mnist_class"]
     kernels = replay_kernels(
         lambda: cstep.train_step(x4096, t4096, lr=LR))
@@ -7592,6 +7933,12 @@ def main() -> int:
                "card vs CPU (reduced)":
                lm_train["card vs cpu"]["launches"][name]}
         for name in XB_NAMES}
+    # the kernel-mode decode's (step 11 (e)): the captured sessions, the
+    # eager one and the profiled replays
+    decode_counted = {
+        "crossbar_fwd": {f"{LM_ARCH} crossbar kernel mode decode":
+                         lm["decode kernel mode"]["launches in step 11 (e)"][
+                             "crossbar_fwd"]}}
     # the MoE path's: the reduced kernel-mode training steps (step 20 (d))
     moe_counted = {
         name: {f"{arch} reduced, card vs CPU": res["reduced training"][
@@ -7623,7 +7970,8 @@ def main() -> int:
                vlm["reduced training"]["launches"][name]}
         for name in XB_NAMES}
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
-                        *lm_counted.items(), *moe_counted.items(),
+                        *lm_counted.items(), *decode_counted.items(),
+                        *moe_counted.items(),
                         *ssm_counted.items(), *encdec_counted.items(),
                         *vlm_counted.items()):
         counted[name] += sum(paths.values())
@@ -7732,6 +8080,19 @@ def main() -> int:
                                    "tile")}
                 for r in vlm["train"]["crossbar"]["rows"]
                 if r["kernel"] == name]
+        if name in decode_counted:
+            dk = lm["decode kernel mode"]
+            entries[-1]["launches_decode"] = decode_counted[name]
+            entries[-1]["decode_launches_per_replay"] = dk[
+                "crossbar_fwd launches per replay"]
+            entries[-1]["decode_layer0_rel_err"] = dk[
+                "layer-0 launches vs plain, max |err| / sum |x||w|"][name]
+            entries[-1]["decode_shapes"] = [
+                {k: r[k] for k in ("M", "K", "N", "in_bytes", "ms",
+                                   "ms_device", "plain_ms", "library_ms",
+                                   "library_ms_device", "bound_ms",
+                                   "bound_by", "tile")}
+                for r in dk["rows"] if r["kernel"] == name]
         if name in lm_counted:
             entries[-1]["launches_lm_train"] = lm_counted[name]
             entries[-1]["lm_train_layer0_rel_err"] = lm_rel_err[name]

@@ -7,7 +7,9 @@ is not ported).
   python examples/torch_serve_batched.py --device cpu   # plain versions
 
 Parameters are drawn from ``--seed`` on the run's device.  On the card
-the time is measured with CUDA events around ``generate``.
+the server's decode step is one captured CUDA graph (the last line counts
+the captures beside the steps) and the time is measured with CUDA events
+around ``generate``; on the CPU the step runs eagerly (0 captures).
 """
 import argparse
 import pathlib
@@ -60,7 +62,8 @@ def main(argv=None):
         print(f"req{i}: prompt={prompts[i]} -> {o}")
     print(f"{server.stats.tokens_out} tokens in {dt:.2f}s = "
           f"{server.stats.tokens_out/dt:.1f} tok/s on {where} "
-          f"({args.arch} reduced)")
+          f"({args.arch} reduced) ({server.stats.steps} decode steps), "
+          f"{server.captures} decode-step captures")
 
 
 if __name__ == "__main__":

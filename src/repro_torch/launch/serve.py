@@ -17,8 +17,10 @@ Parameters are restored from the latest step of ``--ckpt-dir`` (a
 checkpoint of ``launch.train``, the port's or the reference's), or else
 drawn from ``--seed`` on the run's device.  Runs on ``--device cuda``
 unless given ``--device cpu``; without a card the CUDA default raises.  On
-the card the time is measured with CUDA events around ``generate``; on
-the CPU with the host clock.
+the card the server's decode step is one captured CUDA graph (one capture,
+then a replay a step; the tokens line counts the captures) and the time is
+measured with CUDA events around ``generate``; on the CPU the step runs
+eagerly (0 captures) and the time is taken with the host clock.
 """
 from __future__ import annotations
 
@@ -81,7 +83,8 @@ def main(argv: list[str] | None = None) -> None:
         print(f"req{i}: {o[:16]}{'...' if len(o) > 16 else ''}")
     tok = server.stats.tokens_out
     print(f"{tok} tokens in {dt:.2f}s = {tok/dt:.1f} tok/s "
-          f"({server.stats.steps} decode steps)")
+          f"({server.stats.steps} decode steps), {server.captures} "
+          f"decode-step captures")
 
 
 if __name__ == "__main__":

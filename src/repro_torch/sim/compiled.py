@@ -52,7 +52,8 @@ tiles) are exact zeros, so skipping them changes no value.
   * Launch counts: under capture the wrappers' ``launches`` tick without
     anything running, so a capture records each graph's launches, takes
     them back, and adds them on every replay — ``launches`` keeps
-    counting launches executed.
+    counting launches executed (`graphs.Graph`, which the LM server's
+    captured decode step shares).
   * Serving (`run_serve_session`): one beat — every stage of every lane in
     ONE forward launch over their concatenated cores, the aggregation a
     gather-sum — is captured once per (lanes, microbatch, padded queue)
@@ -71,11 +72,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core import quantization as q
 from repro_torch.core.crossbar import hard_sigmoid, hard_sigmoid_deriv
 from repro_torch.dist.collectives import farm_reduce_sum
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels import ops as _wrappers   # counts; see _launch_counts
 from repro_torch.sim.placer import StageMaps, StageStacks
 
 # ---------------------------------------------------------------------------
@@ -265,26 +266,9 @@ def _backward_scan(stacks: StageStacks, xs_all, dps, delta: torch.Tensor,
 # Programs: one per (program, config, shapes) on a StageStacks
 # ---------------------------------------------------------------------------
 
-def _launch_counts() -> dict[str, int]:
-    """Every wrapper's ``launches``, read from the ops module itself (not
-    through ``kernel_ops``, which a caller may wrap to record calls)."""
-    return {name: fn.launches for name, fn in vars(_wrappers).items()
-            if callable(fn) and isinstance(getattr(fn, "launches", None),
-                                           int)}
-
-
-def _clone(tree):
-    """Copy the tensors of a (nested) result out of a graph's memory."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone(t) for t in tree)
-    return tree
-
-
 class _Program:
-    """One built program: a captured CUDA graph on the card, the stage loop
-    itself on the CPU.
+    """One built program: a captured CUDA graph on the card
+    (`graphs.Graph`), the stage loop itself on the CPU.
 
     Arguments are tensors (copied into static input buffers before a
     replay) and floats (written into one-element fp32 device buffers, so
@@ -301,10 +285,13 @@ class _Program:
         self.body = body
         self.device = next(a.device for a in args
                            if isinstance(a, torch.Tensor))
-        self.graph: torch.cuda.CUDAGraph | None = None
+        self.graph = graphs.Graph(body, self.device)
         self.inputs: list[torch.Tensor] = []
-        self.result = None
-        self.per_replay: dict[str, int] = {}
+
+    @property
+    def per_replay(self) -> dict[str, int]:
+        """Each wrapper's launches in one replay (empty before capture)."""
+        return self.graph.per_replay
 
     def _bind(self, args: list) -> list[torch.Tensor]:
         if self.device.type == "cpu":
@@ -329,35 +316,15 @@ class _Program:
             for _ in range(repeat):
                 result = self.body(*inputs)
             return result
-        if self.graph is None:
-            result = self._warm_up_and_capture(inputs)
+        if not self.graph.captured:
+            result = self.graph.warm_up(*inputs)
+            self.graph.capture(*inputs)
             repeat -= 1
             if not repeat:
                 return result
         for _ in range(repeat):
-            self.graph.replay()
-            for name, n in self.per_replay.items():
-                getattr(_wrappers, name).launches += n
-        return _clone(self.result)
-
-    def _warm_up_and_capture(self, inputs: list[torch.Tensor]):
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            result = self.body(*inputs)
-        current.wait_stream(side)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.result = self.body(*inputs)
-        after = _launch_counts()
-        self.per_replay = {k: after[k] - before[k] for k in after
-                           if after[k] != before[k]}
-        for name, n in before.items():      # a capture launches nothing
-            getattr(_wrappers, name).launches = n
-        self.graph = graph
-        return result
+            result = self.graph.replay()
+        return graphs.clone_tree(result)
 
 
 def _run(stacks: StageStacks, key: tuple, body: Callable, args: list,
