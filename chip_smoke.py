@@ -498,27 +498,54 @@ Imports nothing of JAX or of the JAX package.  In order, it:
     eager decode on a copy of the cache bit for bit; in the MoE family every step's routing is held too (a
     replay appends clones of the records its capture made: one
     ``Routing`` a moe layer a step);
-26. prints the wave and training-step times (CUDA events), compiled beside
+26. the training steps as captured CUDA graphs, after step 25's memory
+    is freed (``Trainer``'s ``TrainStep`` and ``make_paper_train_step``'s
+    ``PaperTrainStep``): (a) for each of ``GRAPH_CASES`` (qwen2-0.5b at
+    full width, 4 x 2048, bf16, adamw, remat "full"; its crossbar kernel
+    mode with pulse_sgd at 4 x 1024; qwen3-moe-30b-a3b at full width cut
+    to 1 layer, 2 x 1024, routing under capture; mamba2-130m whole, 4 x
+    2048) a captured and an eager ``Trainer`` from seed 0 (the eager one's
+    ``train_step = step.fn``) take 3 steps of the launcher's optimizer on
+    the same batches, and after each their parameters, optimizer state
+    and metrics are equal bit for bit; one capture, and the captured
+    steps launch the port's kernels as often as the eager ones (counts
+    at 0 before, read after); pulse_sgd's stochastic rounding from a CUDA
+    generator registered with the graph equals the eager draws over 3
+    steps (reduced qwen2-0.5b, crossbar mode), or, where the card's torch
+    cannot register a generator, a ``TrainStep`` refuses one; (b)
+    mamba2-130m's captured run saved at step 2, restored by a fresh
+    ``Trainer``, which captures again and whose step 3 equals the eager
+    run's bit for bit; (c) the paper's scan step (``PAPER_SPEC``,
+    ``use_kernel=True``, four 512 x 512 layers at batch 256) captured
+    against ``paper_backprop_step_scan`` run eagerly, 5 steps, stacks and
+    errors bit for bit, one capture, 4 fwd + 4 bwd + 4 pulse_update a
+    step in each; (d) each case's captured and eager step ms by CUDA
+    events (2 steps each), tokens/s (samples/s), one profiled replay's
+    idle share and the graph's pool, beside the card and its limit;
+27. prints the wave and training-step times (CUDA events), compiled beside
     eager, ``torch.profiler`` breakdowns of the waves and steps with the
     device's idle share, the kernels of one profiled replay (the port's
     kernels and only those; where the profiler records no device
     activity, the idle shares are not measured and the replay is checked
-    by the counts its capture recorded) — all taken before steps 18-25
+    by the counts its capture recorded) — all taken before steps 18-26
     run, which come last of the paths, so that their large allocations
     and long profiles disturb nothing else —, one ``{"kernels": [...]}``
     line with eight entries (the fp32 flash kernel as
     ``flash_attention_simt``; the crossbar kernels' ``launches`` include
-    steps 11 (e), 12-18 and 20-23, broken down in ``launches_decode``
+    steps 11 (e), 12-18, 20-23 and 26, broken down in
+    ``launches_decode``
     (``crossbar_fwd``, with ``decode_launches_per_replay``,
     ``decode_layer0_rel_err`` and ``decode_shapes``),
     ``launches_faults_and_farm``,
     ``launches_pipeline``, ``launches_lm_train``, ``launches_moe``,
-    ``launches_ssm``, ``launches_encdec`` and ``launches_vlm``, with
+    ``launches_ssm``, ``launches_encdec``, ``launches_vlm`` and
+    ``launches_train_graphs``, with
     mamba2's, seamless's and qwen2-vl's projection shapes in
     ``ssm_shapes``, ``encdec_shapes`` and ``vlm_shapes``; the flash
     kernels' steps 18-24 in ``launches_lm_train``, ``launches_hybrid``,
     ``launches_moe``, ``launches_ssm`` (0), ``launches_encdec``,
-    ``launches_vlm`` and ``launches_dist``, with the local layer's, hd 256's, seamless's
+    ``launches_vlm``, ``launches_dist`` and ``launches_train_graphs``
+    (step 26), with the local layer's, hd 256's, seamless's
     non-causal and qwen2-vl's prefill timings, the cross phase's rows and
     the backward's yardsticks beside; ``crossbar_dw`` carries
     ``farm_step_local_dw``; the crossbar kernels carry step 25's
@@ -4504,7 +4531,8 @@ def params_equal(a, b) -> tuple[bool, float]:
     from repro_torch.dist.sharding import tree_leaves
     la, lb = tree_leaves(a), tree_leaves(b)
     same = all(torch.equal(x, y) for x, y in zip(la, lb))
-    return same, max(float((x - y).abs().max()) for x, y in zip(la, lb))
+    return same, max((float((x - y).abs().max()) for x, y in zip(la, lb)),
+                     default=0.0)
 
 
 def lm_train_standard(ops, fak) -> dict:
@@ -4514,7 +4542,9 @@ def lm_train_standard(ops, fak) -> dict:
     step 2, the flash counts at 0 before and read after (per step 24
     forward launches + 24 recomputed, all wgmma/chunked); a fresh Trainer
     on the same directory resumes at step 2 and its step-3 parameters equal
-    the uninterrupted run's bit for bit."""
+    the uninterrupted run's bit for bit.  Both Trainers step through their
+    captured graph (one capture each); the step alone is then timed
+    eagerly (``make_train_step``)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
@@ -4553,9 +4583,13 @@ def lm_train_standard(ops, fak) -> dict:
         if not same:
             raise AssertionError(f"resumed step-3 parameters differ from the "
                                  f"uninterrupted run's by up to {diff}")
+        if (trainer.step.captures, resumed.step.captures) != (1, 1):
+            raise AssertionError(f"captures {trainer.step.captures} and "
+                                 f"{resumed.step.captures}, not one each")
         if r_hist[-1]["loss"] != hist[-1]["loss"]:
             raise AssertionError("resumed step-3 loss differs")
     del r_state, resumed
+    gc_collect()                # the resumed Trainer's graph and its pool
     # the step alone: CUDA events over 2 steps after the run's warm-up
     step = make_train_step(trainer.model, trainer.opt)
     batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
@@ -4940,11 +4974,11 @@ def lm_train_card_vs_cpu(ops, arch: str = LM_ARCH) -> dict:
             nonlocal outside, inside
             base, seen_g = sgd(0.1), []
 
-            def update(grads, state, params, step=0):
+            def update(grads, state, params, step=0, **kw):
                 seen_g.append([g.cpu() for g in tree_leaves(grads)])
-                return base.update(grads, state, params, step=step)
+                return base.update(grads, state, params, step=step, **kw)
 
-            opt = Optimizer(base.init, update, "sgd")
+            opt = Optimizer(base.init, update, "sgd", base.scalars)
             params = tree_map(lambda t: t.to(dev, copy=True), p0)
             if mode == "kernel":
                 outside, inside = xbar_projections(params)
@@ -7101,7 +7135,7 @@ def dist_trainer(ops, cfg, stream) -> dict:
             (r_state.params, r_state.opt_state))):
         raise AssertionError("(d) a restored leaf is not on the card")
     batch = tree_map(lambda a: a.to("cuda"), stream.batch_at(DIST_STEPS))
-    params, opt_state, metrics = plain._step(
+    params, opt_state, metrics = plain.train_step(
         u_state.params, u_state.opt_state, batch, DIST_STEPS)
     trees_equal(r_state.params, params, "(d) resumed step params vs the "
                 "uninterrupted run's")
@@ -7495,6 +7529,283 @@ def replay_kernels(fn) -> dict[str, int] | None:
     return found
 
 
+# -- the training steps as captured CUDA graphs (step 26) -------------------
+
+GRAPH_STEPS = 3          # (a): steps held bit for bit, captured vs eager
+GRAPH_TIMED = 2          # (d): steps timed by CUDA events in each mode
+GRAPH_MOE_ARCH = "qwen3-moe-30b-a3b"
+GRAPH_CASES = (
+    # (case, arch, config overrides, optimizer, batch, length, resume)
+    (LM_ARCH, LM_ARCH, {}, "adamw", TRAIN_BATCH, TRAIN_LEN, False),
+    (f"{LM_ARCH} crossbar kernel mode", LM_ARCH,
+     {"crossbar": True, "xbar_use_kernel": True}, "pulse_sgd", XB_BATCH,
+     XB_LEN, False),
+    (f"{GRAPH_MOE_ARCH} at 1 layer", GRAPH_MOE_ARCH, {"n_layers": 1},
+     "adamw", 2, 1024, False),
+    (SSM_ARCH, SSM_ARCH, {}, "adamw", TRAIN_BATCH, TRAIN_LEN, True),
+)
+PAPER_GRAPH_DIMS = [512] * 5     # four equal-shaped 512 x 512 layers
+PAPER_GRAPH_BATCH = 256          # isolet_class's training batch (steps 15-17)
+PAPER_GRAPH_STEPS = 5
+PAPER_GRAPH_LR = 0.1
+
+
+def metrics_vector(m: dict) -> torch.Tensor:
+    """A step's metrics stacked in name order: one fp32 tensor, a copy out
+    of a graph's output buffers."""
+    return torch.stack([m[k].float() for k in sorted(m)])
+
+
+def graph_counts(ops) -> dict[str, int]:
+    return {"flash_attention": ops.flash_attention.launches,
+            **{n: getattr(ops, n).launches for n in XB_NAMES}}
+
+
+def graph_case(ops, name, arch, overrides, optimizer, B, S,
+               resume) -> dict:
+    """Step 26 (a), (b) and (d) for one configuration: a captured and an
+    eager ``Trainer`` (``train_step = step.fn``) from seed 0 take
+    GRAPH_STEPS steps of the launcher's optimizer on the same batches;
+    after each, parameters, optimizer state and metrics are equal bit for
+    bit.  With ``resume``, the captured run's state at step 2 is saved
+    and a fresh ``Trainer`` restores it, captures again and its step 3
+    equals the eager run's.  Then GRAPH_TIMED more steps of each by CUDA
+    events, a profiled replay and the graph's pool."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import Trainer, TrainState
+    cfg = get_config(arch, **overrides)
+    stream = TokenStream(cfg.vocab_size, S, B, seed=SEED)
+    t0 = time.perf_counter()
+    ckpt = tempfile.TemporaryDirectory()
+
+    def trainer(**kw):
+        return Trainer(cfg, launch_train_config(cfg, optimizer, GRAPH_STEPS),
+                       seed=SEED, device="cuda", **kw)
+
+    cap, eag = trainer(ckpt_dir=ckpt.name), trainer()
+    eag.train_step = eag.step.fn
+    sc, se = cap.init_state(), eag.init_state()
+    pc, oc, pe, oe = sc.params, sc.opt_state, se.params, se.opt_state
+    torch.cuda.synchronize()
+    zero_lm_counts(ops)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    by_mode = {"captured": {}, "eager": {}}
+    for s in range(GRAPH_STEPS):
+        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
+        c0 = graph_counts(ops)
+        pc, oc, mc = cap.train_step(pc, oc, batch, s)
+        mc = metrics_vector(mc)
+        c1 = graph_counts(ops)
+        pe, oe, me = eag.train_step(pe, oe, batch, s)
+        losses.append(float(me["loss"]))
+        me = metrics_vector(me)
+        c2 = graph_counts(ops)
+        for mode, a, b in (("captured", c0, c1), ("eager", c1, c2)):
+            for k in a:
+                by_mode[mode][k] = by_mode[mode].get(k, 0) + b[k] - a[k]
+        what = f"(a) {name}, step {s + 1}"
+        trees_equal(pc, pe, f"{what}: captured parameters vs eager")
+        trees_equal(oc, oe, f"{what}: captured {optimizer} state vs eager")
+        if not torch.equal(mc, me) or not torch.isfinite(mc).all():
+            raise AssertionError(f"{what}: captured metrics {mc.tolist()} "
+                                 f"vs eager {me.tolist()}")
+        if resume and s == 1:
+            cap.save(TrainState(pc, oc, 2))
+    counts = graph_counts(ops)
+    if cap.step.captures != 1 or by_mode["captured"] != by_mode["eager"]:
+        raise AssertionError(f"(a) {name}: {cap.step.captures} captures, "
+                             f"launches {by_mode}")
+    out = {"steps": GRAPH_STEPS, "losses": losses,
+           "captured == eager, bit for bit": True, "launches": counts,
+           "captures": cap.step.captures,
+           "peak GB (both trainers)": torch.cuda.max_memory_allocated()
+           / 1e9}
+    if resume:
+        resumed = trainer(ckpt_dir=ckpt.name)
+        r_state, r_hist = resumed.run(stream, GRAPH_STEPS, log_every=100)
+        if [h["step"] for h in r_hist] != [GRAPH_STEPS]:
+            raise AssertionError(f"(b) {name}: resumed at {r_hist}")
+        trees_equal(r_state.params, pe, f"(b) {name}: resumed captured "
+                    f"parameters vs eager")
+        trees_equal(r_state.opt_state, oe, f"(b) {name}: resumed captured "
+                    f"state vs eager")
+        if resumed.step.captures != 1 or r_hist[-1]["loss"] != losses[-1]:
+            raise AssertionError(f"(b) {name}: {resumed.step.captures} "
+                                 f"captures, loss {r_hist[-1]['loss']} vs "
+                                 f"{losses[-1]}")
+        out["resumed from step 2: captures, step 3 bit for bit"] = 1
+        del resumed, r_state
+    ckpt.cleanup()
+    batch = {k: v.cuda() for k, v in stream.batch_at(0).items()}
+    ms_c = cuda_ms(lambda: cap.train_step(pc, oc, batch, GRAPH_STEPS),
+                   iters=GRAPH_TIMED, warmup=0)
+    ms_e = cuda_ms(lambda: eag.train_step(pe, oe, batch, GRAPH_STEPS),
+                   iters=GRAPH_TIMED, warmup=0)
+    prof = profile_device(lambda: cap.train_step(pc, oc, batch,
+                                                 GRAPH_STEPS), reps=1)
+    tokens = B * S
+    out.update({
+        "captured ms": ms_c, "eager ms": ms_e,
+        "captured tokens/s": tokens / ms_c * 1e3,
+        "eager tokens/s": tokens / ms_e * 1e3,
+        "graph pool GB": cap.step.pool_bytes() / 1e9,
+        "profile (one replay)": prof, "s": time.perf_counter() - t0})
+    print(f"captured training step ({name}, {B} x {S}, {optimizer}): "
+          f"captured == eager bit for bit over {GRAPH_STEPS} steps "
+          f"(parameters, state, metrics), {cap.step.captures} capture"
+          + ("; resumed from its step-2 checkpoint: 1 capture, step 3 bit "
+             "for bit" if resume else "")
+          + f"; launches {counts}; captured {ms_c:.3f} ms "
+          f"({out['captured tokens/s']:.0f} tokens/s), eager {ms_e:.3f} ms "
+          f"({out['eager tokens/s']:.0f} tokens/s); one replay busy "
+          f"{ms3(prof['device_busy_ms'])} ms of {prof['span_ms']:.3f}, idle "
+          f"share {ms3(prof['device_idle_share'])}; graph pool "
+          f"{out['graph pool GB']:.3f} GB; peak {out['peak GB (both '
+          f'trainers)']:.2f} GB [{card_line()}]")
+    del cap, eag, pc, oc, pe, oe, sc, se
+    gc_collect()
+    return out
+
+
+def stochastic_pulse_graph(ops) -> dict:
+    """Step 26 (a'): pulse_sgd's stochastic rounding under capture, on the
+    reduced qwen2-0.5b in crossbar mode: a ``TrainStep`` drawing from a
+    CUDA generator registered with its graph against the eager step
+    drawing from an equal generator, GRAPH_STEPS steps bit for bit.  Where
+    the card's torch cannot register a generator with a graph, the
+    ``TrainStep`` must refuse it (the stated limit)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import pulse_sgd
+    from repro_torch.runtime import TrainStep, make_train_step
+    cfg = get_reduced_config(LM_ARCH, crossbar=True)
+    model = build_model(cfg, "cuda")
+    opt = pulse_sgd(0.5)
+    stream = TokenStream(cfg.vocab_size, 64, 4, seed=SEED)
+
+    def fresh():
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        return params, opt.init(params)
+
+    def draws():
+        return torch.Generator(device="cuda").manual_seed(SEED + 7)
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        try:
+            TrainStep(model, opt, generator=draws())
+        except ValueError as e:
+            print(f"stochastic pulse_sgd under capture: refused ({e})")
+            return {"registered generator": False, "refused": True}
+        raise AssertionError("a TrainStep took a generator it cannot "
+                             "register")
+    cap = TrainStep(model, opt, generator=draws())
+    eager = make_train_step(model, opt, generator=draws())
+    (pc, oc), (pe, oe) = fresh(), fresh()
+    for s in range(GRAPH_STEPS):
+        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
+        pc, oc, mc = cap(pc, oc, batch, s)
+        pe, oe, me = eager(pe, oe, batch, s)
+        trees_equal(pc, pe, f"(a') stochastic pulse_sgd, step {s + 1}: "
+                    f"captured parameters vs eager")
+        if not torch.equal(metrics_vector(mc), metrics_vector(me)):
+            raise AssertionError(f"(a') step {s + 1}: metrics differ")
+    nearest = make_train_step(model, opt)
+    pn, on = fresh()
+    for s in range(GRAPH_STEPS):
+        batch = {k: v.cuda() for k, v in stream.batch_at(s).items()}
+        pn, on, _ = nearest(pn, on, batch, s)
+    same, _ = params_equal(pc, pn)
+    if same or cap.captures != 1:
+        raise AssertionError(f"(a') stochastic rounding drew nothing "
+                             f"({cap.captures} captures)")
+    print(f"stochastic pulse_sgd under capture (reduced {LM_ARCH}, crossbar "
+          f"mode, a registered CUDA generator): captured == eager bit for "
+          f"bit over {GRAPH_STEPS} steps, 1 capture; round-to-nearest "
+          f"differs")
+    return {"registered generator": True, "captured == eager": True}
+
+
+def paper_graph(ops) -> dict:
+    """Step 26 (c): ``make_paper_train_step(PAPER_SPEC, lr,
+    use_kernel=True)`` captured against ``paper_backprop_step_scan`` run
+    eagerly, PAPER_GRAPH_STEPS steps on equal-shaped stacked layers at a
+    paper application's batch, stacks and errors bit for bit after each
+    step; the counts at 0 before and read after (a step: 4 fwd, 4 bwd,
+    4 pulse_update); then both timed."""
+    from repro_torch.configs.paper_apps import PAPER_SPEC
+    from repro_torch.core import crossbar as xb
+    from repro_torch.runtime import make_paper_train_step
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dims = PAPER_GRAPH_DIMS
+    layers = [xb.init_conductances(a, b, PAPER_SPEC, generator=gen)
+              for a, b in zip(dims[:-1], dims[1:])]
+    B, L = PAPER_GRAPH_BATCH, len(dims) - 1
+    batches = [{"x": torch.rand((B, dims[0]), generator=gen, device="cuda"),
+                "target": torch.rand((B, dims[-1]), generator=gen,
+                                     device="cuda")}
+               for _ in range(PAPER_GRAPH_STEPS)]
+    cap_stack = xb.stack_layers(layers)
+    eager_stack = {k: v.clone() for k, v in cap_stack.items()}
+    step = make_paper_train_step(PAPER_SPEC, PAPER_GRAPH_LR, use_kernel=True)
+    names = ("crossbar_fwd", "crossbar_bwd", "pulse_update")
+    for n in names:
+        getattr(ops, n).launches = 0
+    for s, b in enumerate(batches):
+        got, err = step(cap_stack, b)
+        err = err.clone()
+        _, want = xb.paper_backprop_step_scan(
+            eager_stack, b["x"], b["target"], PAPER_SPEC, PAPER_GRAPH_LR,
+            True)
+        if got is not cap_stack or not torch.equal(err, want) or not all(
+                torch.equal(cap_stack[k], eager_stack[k])
+                for k in cap_stack):
+            raise AssertionError(f"(c) paper scan step {s + 1}: captured "
+                                 f"differs from eager")
+    counts = {n: getattr(ops, n).launches for n in names}
+    want = {n: 2 * L * PAPER_GRAPH_STEPS for n in names}
+    if counts != want or step.captures != 1:
+        raise AssertionError(f"(c) paper scan: {counts} launches (want "
+                             f"{want}), {step.captures} captures")
+    b = batches[0]
+    ms_c = cuda_ms(lambda: step(cap_stack, b), iters=20, warmup=0)
+    ms_e = cuda_ms(lambda: xb.paper_backprop_step_scan(
+        eager_stack, b["x"], b["target"], PAPER_SPEC, PAPER_GRAPH_LR, True),
+        iters=20, warmup=0)
+    prof = profile_device(lambda: step(cap_stack, b), reps=1)
+    graph = next(iter(step.graphs.values()))[0]
+    out = {"layers": L, "batch": B, "steps": PAPER_GRAPH_STEPS,
+           "captured == eager, bit for bit": True, "launches": counts,
+           "captured ms": ms_c, "eager ms": ms_e,
+           "captured samples/s": B / ms_c * 1e3,
+           "eager samples/s": B / ms_e * 1e3,
+           "graph pool GB": graph.pool_bytes() / 1e9,
+           "profile (one replay)": prof}
+    print(f"captured paper scan step ({L} layers of {dims[0]} x {dims[1]}, "
+          f"batch {B}, PAPER_SPEC, use_kernel): captured == eager bit for "
+          f"bit over {PAPER_GRAPH_STEPS} steps (stacks, errors), 1 capture, "
+          f"launches {counts}; captured {ms_c:.4f} ms "
+          f"({out['captured samples/s']:.0f} samples/s), eager {ms_e:.4f} "
+          f"ms; one replay busy {ms3(prof['device_busy_ms'])} ms of "
+          f"{prof['span_ms']:.3f}, idle share "
+          f"{ms3(prof['device_idle_share'])}; graph pool "
+          f"{out['graph pool GB']:.4f} GB [{card_line()}]")
+    return out
+
+
+def train_graph_path(ops) -> dict:
+    """Step 26: the training steps as captured CUDA graphs (module
+    docstring)."""
+    out = {}
+    for case in GRAPH_CASES:
+        out[case[0]] = graph_case(ops, *case)
+    out["stochastic pulse_sgd"] = stochastic_pulse_graph(ops)
+    out["paper scan step"] = paper_graph(ops)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7870,6 +8181,19 @@ def main() -> int:
     print(f"analysis path [{card}], {phase_s['analysis path']:.1f} s: "
           + json.dumps(analysis))
 
+    # -- the training steps as captured CUDA graphs (step 26): step 25's
+    # memory freed first
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphs_res = train_graph_path(ops)
+    phase_s["train graph path"] = time.perf_counter() - t0
+    print(f"train graph path [{card}], {phase_s['train graph path']:.1f} s: "
+          + json.dumps({case: ({k: v for k, v in out.items()
+                                if "profile" not in k}
+                               if isinstance(out, dict) else out)
+                        for case, out in graphs_res.items()}))
+
     fwd_rows = {(r["T"], r["K"], r["N"]): r for r in rows
                 if r["app"] == "mnist_class"}
     by_kernel = {
@@ -7969,11 +8293,22 @@ def main() -> int:
                f"{VLM_ARCH} reduced, card vs CPU":
                vlm["reduced training"]["launches"][name]}
         for name in XB_NAMES}
+    # the training graphs' (step 26): qwen2-0.5b's kernel-mode steps,
+    # captured and eager, and the paper scan step's, captured and eager
+    graphs_counted = {
+        name: {f"{LM_ARCH} crossbar kernel mode, captured and eager":
+               graphs_res[f"{LM_ARCH} crossbar kernel mode"]["launches"][
+                   name]}
+        for name in XB_NAMES}
+    for name in ("crossbar_fwd", "crossbar_bwd", "pulse_update"):
+        graphs_counted.setdefault(name, {})[
+            "paper scan step, captured and eager"] = graphs_res[
+                "paper scan step"]["launches"][name]
     for name, paths in (*farm_counted.items(), *pipe_counted.items(),
                         *lm_counted.items(), *decode_counted.items(),
                         *moe_counted.items(),
                         *ssm_counted.items(), *encdec_counted.items(),
-                        *vlm_counted.items()):
+                        *vlm_counted.items(), *graphs_counted.items()):
         counted[name] += sum(paths.values())
     errs = {"crossbar_fwd": max_err, **train_err,
             "crossbar_train": fused_err}
@@ -8045,6 +8380,8 @@ def main() -> int:
         entries[-1]["launches_pipeline"] = pipe_counted[name]
         if name in moe_counted:
             entries[-1]["launches_moe"] = moe_counted[name]
+        if name in graphs_counted:
+            entries[-1]["launches_train_graphs"] = graphs_counted[name]
         if name in ssm_counted:
             entries[-1]["launches_ssm"] = ssm_counted[name]
             entries[-1]["ssm_train_layer0_rel_err"] = ssm["train"][
@@ -8215,6 +8552,15 @@ def main() -> int:
             "meshed and unmeshed Trainer, resumed step (d)": dist[
                 "trainer"]["flash launches"]},
         "flash_attention_simt": {}}
+    # the training graphs' launches (step 26): each case's captured and
+    # eager steps, all bf16
+    graphs_flash = {
+        "flash_attention": {
+            f"{case}, captured and eager": res["launches"][
+                "flash_attention"]
+            for case, res in graphs_res.items()
+            if "flash_attention" in res.get("launches", {})},
+        "flash_attention_simt": {}}
     bwd_yard = lm_train["standard"]["attention backward yardsticks"]
 
     def fw_row(dt, case):
@@ -8239,7 +8585,9 @@ def main() -> int:
              "its 1-layer training steps, 2 a step, all wgmma/chunked), and "
              "the dist path (launches_dist: qwen2-0.5b's data-parallel, "
              "pipeline and meshed Trainer runs, all wgmma/chunked; the "
-             "--mesh host CLI runs in a process of its own, not counted)"),
+             "--mesh host CLI runs in a process of its own, not counted), "
+             "and the training graphs (launches_train_graphs: each case's "
+             "captured and eager steps, all wgmma/chunked)"),
             ("flash_attention_simt", "float32", "flash_attention.cu",
              lm["prefill fp32"]["flash_attention launches"],
              "launches: the float32 prefill path, one prefill_fn call (24, "
@@ -8259,6 +8607,7 @@ def main() -> int:
         launches += sum(encdec_flash[name].values())
         launches += sum(vlm_flash[name].values())
         launches += sum(dist_flash[name].values())
+        launches += sum(graphs_flash[name].values())
         qwen2_vl = next(r for r in fv_rows if r["dtype"] == dt
                         and r["semantics"] == "chunked")
         seamless = next(r for r in fx_rows if r["dtype"] == dt
@@ -8290,6 +8639,7 @@ def main() -> int:
             "launches_encdec": encdec_flash[name],
             "launches_vlm": vlm_flash[name],
             "launches_dist": dist_flash[name],
+            "launches_train_graphs": graphs_flash[name],
             "vlm_prefill_shape": {k: qwen2_vl[k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "registers", "spill_stores")},

@@ -16,7 +16,11 @@ the CUDA default raises.  TF32 stays off, so float32 compute means full
 fp32 products.  ``--mesh host|single|multi`` builds the reference's mesh
 (``launch/mesh.py``: ``(n, 1)`` over the visible devices, or the
 production ``(16, 16)`` / ``(2, 16, 16)``) folded onto the device, and
-trains on it with the reference's shardings.
+trains on it with the reference's shardings.  On the card the
+``Trainer``'s step is one captured CUDA graph (``runtime.train_loop.
+TrainStep``): the first step warms up and captures, every later one
+replays; the line before the last counts the captures (1 on the card, 0
+on the CPU, where the step runs eagerly).
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ def main(argv: list[str] | None = None) -> None:
                       device=device)
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     state, hist = trainer.run(stream, args.steps)
+    print(f"{trainer.step.captures} training-step captures")
     print(f"final step {state.step}: loss {hist[-1]['loss']:.4f} "
           f"(first {hist[0]['loss']:.4f})")
     if trainer.watchdog.events:

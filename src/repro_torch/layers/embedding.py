@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist.sharding import ParamSpec, normal_init
+from repro_torch.layers import products
 from repro_torch.layers.linear import XbarMode, dense_spec
 
 NEG_INF = -1e30
@@ -36,11 +37,12 @@ def lm_head_apply(params: dict, x: torch.Tensor, *,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   valid_vocab: int | None = None) -> torch.Tensor:
     if tied_table is not None:
-        logits = x.to(compute_dtype) @ tied_table.to(compute_dtype).T
+        logits = products.matmul(x.to(compute_dtype),
+                                 tied_table.to(compute_dtype).T)
     else:
         w = (params["w"] if "w" in params
              else params["g_plus"] - params["g_minus"]).to(compute_dtype)
-        logits = x.to(compute_dtype) @ w
+        logits = products.matmul(x.to(compute_dtype), w)
     logits = logits.to(torch.float32)
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         logits[..., valid_vocab:] = NEG_INF

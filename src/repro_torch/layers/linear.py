@@ -4,8 +4,10 @@
 Every LM projection goes through ``dense_spec`` / ``dense_apply``.  In
 standard mode a projection is one weight tensor and the product is taken
 in the compute dtype (a bf16 product returns bf16, as the reference's
-does).  In crossbar mode (``XbarMode``) it is a differential conductance
-pair with transport-quantized activations (dynamic max-abs fake-quant at
+does; every product here goes through ``layers.products``, which on the
+CPU takes a bf16 product as the fp32 product rounded once).  In crossbar
+mode (``XbarMode``) it is a differential conductance pair with
+transport-quantized activations (dynamic max-abs fake-quant at
 ``act_bits``) and an error-quantized backward (``qmatmul``).  A float32
 compute dtype means full fp32 products: TF32 stays off (PyTorch's
 default for matmuls; ``launch.serve`` and ``chip_smoke.py`` set it off
@@ -21,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import quantization as q
+from repro_torch.layers import products
 from repro_torch.dist.sharding import ParamSpec, fanin_init, zeros_init
 
 
@@ -88,14 +91,14 @@ class _QMatmul(torch.autograd.Function):
     def forward(ctx, x, w, err_bits):
         ctx.save_for_backward(x, w)
         ctx.err_bits = err_bits
-        return x @ w
+        return products.matmul(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dyq = q.error_quantize(dy, ctx.err_bits).dequantize().to(dy.dtype)
-        dx = dyq @ w.T
-        dw = torch.einsum("...i,...j->ij", x, dyq).to(w.dtype)
+        dx = products.matmul(dyq, w.T)
+        dw = products.einsum("...i,...j->ij", x, dyq).to(w.dtype)
         return dx, dw, None
 
 
@@ -110,7 +113,8 @@ def dense_apply(params: dict[str, torch.Tensor], x: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 xbar: XbarMode | None = None) -> torch.Tensor:
     if xbar is None:
-        y = x.to(compute_dtype) @ params["w"].to(compute_dtype)
+        y = products.matmul(x.to(compute_dtype),
+                            params["w"].to(compute_dtype))
     elif xbar.use_kernel and "g_plus" in params:
         # the differential-pair subtraction happens inside the fwd kernel;
         # backward runs the bwd + dw kernels on 8-bit error codes

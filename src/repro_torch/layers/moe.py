@@ -25,10 +25,11 @@ are 0 and 1, exact in bf16, and an int64 ``F.one_hot`` of
 nonzero term each, so dispatch and combine are exact.
 
 The experts' SiLU is ``mlp.silu``, ``jax.nn.silu`` op for op.  The
-einsums are cuBLAS products in the compute dtype, as the reference's
-are XLA's: no Pallas kernel stands behind them.  The router and the
-experts take no crossbar (the reference's ``moe_spec``); the shared
-expert is an ``mlp_apply`` and takes the config's.
+einsums are cuBLAS products in the compute dtype on the card (on the
+CPU ``layers.products``' fp32 form), as the reference's are XLA's: no
+Pallas kernel stands behind them.  The router and the experts take no
+crossbar (the reference's ``moe_spec``); the shared expert is an
+``mlp_apply`` and takes the config's.
 
 ``ROUTING``: where it is a list, every call appends its :class:`Routing`
 (device tensors, nothing read back to the host), which the parity tests
@@ -42,6 +43,7 @@ import dataclasses
 import torch
 
 from repro_torch.dist.sharding import ParamSpec, fanin_init
+from repro_torch.layers import products
 from repro_torch.layers.linear import XbarMode, dense_apply, dense_spec
 from repro_torch.layers.mlp import mlp_apply, mlp_spec, silu
 
@@ -76,6 +78,29 @@ class Routing:
 
 
 ROUTING: list[Routing] | None = None
+
+
+def capture_records(capture) -> list:
+    """Call ``capture`` (a CUDA-graph capture of a step) and return the
+    records it appended to ``ROUTING``, taken out of the list: a capture
+    executes nothing, so its records stand for what each replay routes
+    (``replay_records``).  Nothing when ``ROUTING`` is not a list."""
+    records = ROUTING
+    n = len(records) if isinstance(records, list) else None
+    capture()
+    if n is None:
+        return []
+    taken = records[n:]
+    del records[n:]
+    return taken
+
+
+def replay_records(records: list) -> None:
+    """Append clones of a capture's records to ``ROUTING`` (where it is a
+    list), as the eager step would have appended its own."""
+    if records and isinstance(ROUTING, list):
+        from repro_torch.graphs import clone_tree
+        ROUTING.extend(clone_tree(r) for r in records)
 
 
 def moe_spec(cfg: MoeConfig, xbar: XbarMode | None = None) -> dict:
@@ -144,16 +169,16 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoeConfig, *,
     combine = (dispatch * gates).sum(dim=2)                  # (G,s,E,C)
     dispatch = dispatch.sum(dim=2)                           # (G,s,E,C)
 
-    xe = torch.einsum("gsec,gsd->gecd", dispatch,
-                      xt.to(compute_dtype))                  # (G,E,C,d)
+    xe = products.einsum("gsec,gsd->gecd", dispatch,
+                         xt.to(compute_dtype))               # (G,E,C,d)
     wg = params["wg"].to(compute_dtype)
     wi = params["wi"].to(compute_dtype)
     wo = params["wo"].to(compute_dtype)
-    h = silu(torch.einsum("gecd,edf->gecf", xe, wg)) * \
-        torch.einsum("gecd,edf->gecf", xe, wi)
-    ye = torch.einsum("gecf,efd->gecd", h, wo)               # (G,E,C,d)
+    h = silu(products.einsum("gecd,edf->gecf", xe, wg)) * \
+        products.einsum("gecd,edf->gecf", xe, wi)
+    ye = products.einsum("gecf,efd->gecd", h, wo)            # (G,E,C,d)
 
-    y = torch.einsum("gsec,gecd->gsd", combine, ye)          # (G,s,d)
+    y = products.einsum("gsec,gecd->gsd", combine, ye)       # (G,s,d)
     y = y.reshape(B, S, d)
 
     if "shared" in params:

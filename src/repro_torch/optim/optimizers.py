@@ -16,6 +16,16 @@ its order; ``lr`` is a float or a schedule of the integer step, and
 adamw's bias corrections are float32 values, as the reference's jitted
 step computes them at an int32 step (``_bias_correction``).
 
+The values that change from step to step (the learning rate, adamw's bias
+corrections) are computed on the host, ``opt.scalars(step)``, and enter
+the update as 0-d float64 tensors on the leaves' device (``scalars=``; by
+default made from ``opt.scalars(step)`` at each call), so a captured step
+(``runtime.train_loop.TrainStep``) reads them from buffers that each
+replay refills.  An operation with such a tensor computes what it
+computes with the Python float on the CPU (a bf16 or fp16 leaf through
+fp32, rounded once, as a Python scalar is applied), and the same on the
+card, where a Python float divisor would become a reciprocal multiply.
+
 ``pulse_sgd`` is the paper's training circuit as an optimizer (C5): the
 update is discretized into unit pulses (``core.quantization.
 pulse_discretize``), and conductance-pair leaves (a path holding
@@ -35,11 +45,16 @@ from repro_torch.core import quantization as q
 from repro_torch.dist.sharding import tree_map
 
 
+def _no_scalars(step: int) -> dict[str, float]:
+    return {}
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[..., tuple[Any, Any]]
     name: str = "opt"
+    scalars: Callable[[int], dict[str, float]] = _no_scalars
 
 
 def _tree_zeros(params):
@@ -50,25 +65,64 @@ def _lr_at(lr, step: int) -> float:
     return lr(step) if callable(lr) else lr
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def device_scalars(host: dict[str, float], device: torch.device
+                   ) -> dict[str, torch.Tensor]:
+    """The host scalars of a step as 0-d float64 tensors on ``device``."""
+    return {k: torch.tensor(v, dtype=torch.float64, device=device)
+            for k, v in host.items()}
+
+
+def _scaled(op, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``op(x, s)`` for a 0-d float64 tensor ``s``, as ``op`` applies a
+    Python float to ``x``: in x's dtype, a half ``x`` through fp32 and
+    rounded once."""
+    if x.dtype in _HALF:
+        return op(x.float(), s).to(x.dtype)
+    return op(x, s)
+
+
+def _step_scalars(opt_scalars, scalars, step: int, like) -> dict:
+    if scalars is not None:
+        return scalars
+    return device_scalars(opt_scalars(step), like.device)
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    if isinstance(tree, dict):
+        return _first_leaf(next(iter(tree.values())))
+    if isinstance(tree, (tuple, list)):
+        return _first_leaf(tree[0])
+    return tree
+
+
 def sgd(lr: float | Callable[[int], float], momentum: float = 0.9,
         weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return {"mu": _tree_zeros(params)} if momentum else {}
 
+    def host_scalars(step: int) -> dict[str, float]:
+        return {"lr": _lr_at(lr, step)}
+
     @torch.no_grad()
-    def update(grads, state, params, step: int = 0):
-        lr_t = _lr_at(lr, step)
+    def update(grads, state, params, step: int = 0, scalars=None):
+        lr_t = _step_scalars(host_scalars, scalars, step,
+                             _first_leaf(params))["lr"]
         if weight_decay:
             grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
         if momentum:
             mu = tree_map(lambda m, g: m.mul_(momentum).add_(g),
                           state["mu"], grads)
-            tree_map(lambda p, m: p.sub_(lr_t * m), params, mu)
+            tree_map(lambda p, m: p.sub_(_scaled(torch.mul, m, lr_t)),
+                     params, mu)
             return params, {"mu": mu}
-        tree_map(lambda p, g: p.sub_(lr_t * g), params, grads)
+        tree_map(lambda p, g: p.sub_(_scaled(torch.mul, g, lr_t)), params,
+                 grads)
         return params, state
 
-    return Optimizer(init, update, "sgd")
+    return Optimizer(init, update, "sgd", host_scalars)
 
 
 def _bias_correction(b: float, t: int) -> float:
@@ -89,27 +143,30 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
     def init(params):
         return {"m": _tree_zeros(params), "v": _tree_zeros(params)}
 
-    @torch.no_grad()
-    def update(grads, state, params, step: int = 0):
-        lr_t = _lr_at(lr, step)
+    def host_scalars(step: int) -> dict[str, float]:
         t = step + 1
+        return {"lr": _lr_at(lr, step), "bc1": _bias_correction(b1, t),
+                "bc2": _bias_correction(b2, t)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step: int = 0, scalars=None):
+        s = _step_scalars(host_scalars, scalars, step, _first_leaf(params))
         m = tree_map(lambda m_, g: m_.mul_(b1).add_((1 - b1) * g),
                      state["m"], grads)
         v = tree_map(lambda v_, g: v_.mul_(b2).add_((1 - b2) * g * g),
                      state["v"], grads)
-        bc1 = _bias_correction(b1, t)
-        bc2 = _bias_correction(b2, t)
 
         def upd(p, m_, v_):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            u = _scaled(torch.div, m_, s["bc1"]) / (
+                torch.sqrt(_scaled(torch.div, v_, s["bc2"])) + eps)
             if weight_decay:
                 u = u + weight_decay * p
-            return p.sub_(lr_t * u)
+            return p.sub_(_scaled(torch.mul, u, s["lr"]))
 
         tree_map(upd, params, m, v)
         return params, {"m": m, "v": v}
 
-    return Optimizer(init, update, "adamw")
+    return Optimizer(init, update, "adamw", host_scalars)
 
 
 def _map_with_path(fn, tree, *rest, path: tuple = ()):
@@ -136,21 +193,25 @@ def pulse_sgd(lr: float | Callable[[int], float], *, max_update: float = 0.05,
     def init(params):
         return {}
 
+    def host_scalars(step: int) -> dict[str, float]:
+        return {"lr": _lr_at(lr, step)}
+
     @torch.no_grad()
     def update(grads, state, params, step: int = 0,
-               generator: torch.Generator | None = None):
-        lr_t = _lr_at(lr, step)
+               generator: torch.Generator | None = None, scalars=None):
+        neg_lr = -_step_scalars(host_scalars, scalars, step,
+                                _first_leaf(params))["lr"]
 
         def upd(path, p, g):
-            p.add_(q.pulse_discretize(-lr_t * g, max_update, levels,
-                                      generator))
+            p.add_(q.pulse_discretize(_scaled(torch.mul, g, neg_lr),
+                                      max_update, levels, generator))
             if any(k in ("g_plus", "g_minus") for k in path):
                 p.clamp_(0.0, w_max)
             return p
 
         return _map_with_path(upd, params, grads), state
 
-    return Optimizer(init, update, "pulse_sgd")
+    return Optimizer(init, update, "pulse_sgd", host_scalars)
 
 
 def make_optimizer(name: str, lr, **kw) -> Optimizer:

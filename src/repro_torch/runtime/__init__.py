@@ -8,4 +8,5 @@ from repro_torch.runtime.faults import (  # noqa: F401
 from repro_torch.runtime.serve_loop import (  # noqa: F401
     BatchedServer, Request, RequestQueue, ServeStats)
 from repro_torch.runtime.train_loop import (  # noqa: F401
-    Trainer, TrainState, make_train_step)
+    PaperTrainStep, Trainer, TrainState, TrainStep, make_paper_train_step,
+    make_train_step)

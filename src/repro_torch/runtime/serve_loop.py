@@ -132,8 +132,7 @@ class DecodeStep:
         if self.graph is None or not self._bind(params, cache, batch):
             return self._capture(params, cache, batch)
         logits, _ = self.graph.replay()
-        if self._records and isinstance(moe.ROUTING, list):
-            moe.ROUTING.extend(graphs.clone_tree(r) for r in self._records)
+        moe.replay_records(self._records)
         return logits, cache
 
     def pool_bytes(self) -> int | None:
@@ -147,12 +146,7 @@ class DecodeStep:
         graph = graphs.Graph(lambda: self.decode_fn(params, cache, bufs),
                              self.device)
         result = graph.warm_up()
-        records = moe.ROUTING
-        n = len(records) if isinstance(records, list) else None
-        graph.capture()
-        if n is not None:
-            self._records = records[n:]
-            del records[n:]
+        self._records = moe.capture_records(graph.capture)
         self.captures += 1
         self.graph, self._batch = graph, bufs
         self._inputs = tree_leaves(params) + tree_leaves(cache)
@@ -161,17 +155,8 @@ class DecodeStep:
     def _bind(self, params, cache, batch) -> bool:
         """Copy the call's batch into the capture's buffers; False where
         the call's tensors are not the captured ones."""
-        inputs = tree_leaves(params) + tree_leaves(cache)
-        if set(batch) != set(self._batch) or any(
-                v.shape != self._batch[k].shape
-                or v.dtype != self._batch[k].dtype
-                for k, v in batch.items()) or len(inputs) != len(
-                self._inputs) or any(a is not b for a, b in zip(
-                    inputs, self._inputs)):
-            return False
-        for k, v in batch.items():
-            self._batch[k].copy_(v)
-        return True
+        return graphs.bind(tree_leaves(params) + tree_leaves(cache),
+                           self._inputs, batch, self._batch)
 
 
 class BatchedServer:

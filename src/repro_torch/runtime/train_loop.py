@@ -11,6 +11,12 @@ the step-keyed data stream (a restart replays it exactly), one host read
 of the step's metrics, and the straggler watchdog and fault-injector
 hooks (``runtime/faults.py``).
 
+On the card the steps are captured CUDA graphs (``graphs.Graph``), the
+port's form of the reference's ``jax.jit(step_fn, donate_argnums=(0,
+1))`` and jitted, donating ``paper_backprop_step_scan``: the
+``Trainer``'s step is a :class:`TrainStep`, and ``make_paper_train_step``
+returns a :class:`PaperTrainStep`.  On the CPU both call the eager step.
+
 The meshed forms take the reference's mesh folded onto one device
 (``dist.sharding.Mesh``): ``make_train_step(param_shardings=)`` pins each
 gradient to its sharding's device (an identity there), and
@@ -27,14 +33,15 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import graphs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.collectives import value_and_grad
 from repro_torch.dist.sharding import tree_leaves, tree_map
+from repro_torch.layers import moe
 from repro_torch.models.model import Model, build_model
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, device_scalars
 from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.runtime.faults import (FaultInjector, StepTimer,
                                         StragglerWatchdog)
@@ -48,29 +55,83 @@ class TrainState:
     step: int
 
 
-def make_paper_train_step(spec, lr: float, *, use_kernel: bool = True):
+def make_paper_train_step(spec, lr: float, *, use_kernel: bool = True
+                          ) -> "PaperTrainStep":
     """The stochastic-BP step of the paper-application path:
     ``step(stacked, batch) -> (stacked, err)`` over
     :func:`repro_torch.core.crossbar.paper_backprop_step_scan` with
     ``batch = {"x": ..., "target": ...}`` and ``stacked`` from
     ``crossbar.stack_layers``.  The conductance stacks are updated in
     place (the reference donates them): keep using the returned
-    ``stacked``."""
-    from repro_torch.core import crossbar as xb
+    ``stacked``.  On the card the step is captured
+    (:class:`PaperTrainStep`)."""
+    return PaperTrainStep(spec, lr, use_kernel=use_kernel)
 
-    def step(stacked, batch):
+
+class PaperTrainStep:
+    """``paper_backprop_step_scan`` at one (spec, lr, use_kernel), called as
+    ``step(stacked, batch) -> (stacked, err)``.
+
+    On the card each (stacks, batch shapes and dtypes) runs as one
+    captured CUDA graph: its first call runs the step on a side stream
+    (that call's own result) and captures it; every later call copies
+    ``x`` and ``target`` into the capture's static buffers and replays,
+    updating the captured stacks in place.  ``err`` is then the graph's
+    output buffer, which the next replay overwrites: clone it to keep it.
+    Another stacked dict (new tensors) captures again in place of the
+    graph of its shapes; ``captures`` counts every capture.  A failed
+    capture raises; nothing falls back to the eager step.  On the CPU the
+    step calls ``paper_backprop_step_scan`` directly."""
+
+    def __init__(self, spec, lr: float, *, use_kernel: bool = True):
+        self.spec, self.lr, self.use_kernel = spec, lr, use_kernel
+        self.compiled: bool | None = None   # None: on CUDA operands
+        self.captures = 0
+        self.graphs: dict[tuple, tuple] = {}
+
+    def eager(self, stacked, batch):
+        from repro_torch.core import crossbar as xb
         return xb.paper_backprop_step_scan(stacked, batch["x"],
-                                           batch["target"], spec, lr,
-                                           use_kernel)
-    return step
+                                           batch["target"], self.spec,
+                                           self.lr, self.use_kernel)
+
+    def __call__(self, stacked, batch):
+        x = batch["x"]
+        if not (x.device.type == "cuda" if self.compiled is None
+                else self.compiled):
+            return self.eager(stacked, batch)
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(stacked.items())) + tuple(
+            (k, tuple(batch[k].shape), batch[k].dtype)
+            for k in ("x", "target"))
+        leaves = list(stacked.values())
+        feed = {k: batch[k] for k in ("x", "target")}
+        held = self.graphs.pop(key, None)
+        if held is not None and graphs.bind(leaves, held[2], feed, held[1]):
+            self.graphs[key] = held
+            _, err = held[0].replay()
+            return stacked, err
+        del held                        # the old capture's pool goes first
+        bufs = {k: v.clone() for k, v in feed.items()}
+        graph = graphs.Graph(lambda: self.eager(stacked, bufs), x.device)
+        result = graph.warm_up()
+        graph.capture()
+        self.captures += 1
+        self.graphs[key] = (graph, bufs, leaves)
+        return result
 
 
 def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
-                    grad_accum: int = 1):
-    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
-    metrics)``.  ``metrics`` holds 0-d device tensors: ``loss``, ``ce``,
-    ``aux`` and ``grad_norm`` (the square root of the gradients' summed
-    squares).
+                    grad_accum: int = 1,
+                    generator: torch.Generator | None = None):
+    """``train_step(params, opt_state, batch, step, scalars=None) ->
+    (params, opt_state, metrics)``.  ``metrics`` holds 0-d device tensors:
+    ``loss``, ``ce``, ``aux`` and ``grad_norm`` (the square root of the
+    gradients' summed squares).  ``scalars`` are the optimizer's step
+    scalars as 0-d device tensors (``opt.scalars(step)`` through
+    ``optimizers.device_scalars``), made at each call when not given.
+    ``generator`` is handed to the update (``pulse_sgd``'s stochastic
+    pulse rounding); without it the update rounds to nearest.
 
     ``grad_accum`` > 1 splits the batch into microbatches that interleave
     rows (B -> (B/k, k) -> k microbatches of rows i, i + k, ...), as the
@@ -100,7 +161,9 @@ def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
         return leaf.reshape((B // grad_accum, grad_accum)
                             + tuple(leaf.shape[1:]))[:, i]
 
-    def train_step(params, opt_state, batch, step: int):
+    extra = {} if generator is None else {"generator": generator}
+
+    def train_step(params, opt_state, batch, step: int, scalars=None):
         if grad_accum > 1:
             grads, loss = None, None
             for i in range(grad_accum):
@@ -118,9 +181,102 @@ def make_train_step(model: Model, opt: Optimizer, param_shardings=None,
             loss, metrics, grads = grad_fn(params, batch)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
                                for g in tree_leaves(grads)))
-        params, opt_state = opt.update(grads, opt_state, params, step=step)
+        params, opt_state = opt.update(grads, opt_state, params, step=step,
+                                       scalars=scalars, **extra)
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
     return train_step
+
+
+class TrainStep:
+    """The ``Trainer``'s step, called as ``make_train_step``'s function is:
+    ``step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``, the parameters and the optimizer state updated in place.
+
+    On the card the step is one captured CUDA graph (``graphs.Graph``):
+    the first call runs the step on a side stream (that call's own result:
+    the update is applied once) and captures it; every later call copies
+    the batch into the capture's static buffers and the optimizer's host
+    scalars of its step (``opt.scalars(step)``: the learning rate, adamw's
+    bias corrections, computed on the host as the eager step computes
+    them) into 0-d float64 device buffers, and replays.  The metrics come
+    back as the graph's output buffers, which the next replay overwrites.
+    The ``grad_accum`` loop, remat, the flash kernel's autograd function
+    and kernel mode's ``crossbar_matmul`` all run inside the one graph.  A
+    failed capture raises; nothing falls back to the eager step.
+
+    A replay needs the very parameter and optimizer-state tensors that
+    were captured, and a batch of the captured keys, shapes and dtypes.
+    Any other call (a restored or replaced leaf, another batch shape)
+    captures again; ``captures`` counts every capture.  Where
+    ``layers.moe.ROUTING`` is a list, every replay appends clones of the
+    records the capture made, as ``serve_loop.DecodeStep`` does.
+
+    ``generator`` (a CUDA generator on the card) feeds ``pulse_sgd``'s
+    stochastic rounding; it is registered with each capture, so every
+    replay draws what the eager step would draw.  On the CPU the step
+    calls ``fn``, ``make_train_step``'s function, and never captures."""
+
+    def __init__(self, model: Model, opt: Optimizer, *, grad_accum: int = 1,
+                 generator: torch.Generator | None = None):
+        self.fn = make_train_step(model, opt, grad_accum=grad_accum,
+                                  generator=generator)
+        self.opt = opt
+        self.device = torch.device(model.device)
+        self.compiled = self.device.type == "cuda"
+        self.generators = () if generator is None else (generator,)
+        if self.compiled and generator is not None and (
+                generator.device.type != "cuda" or not hasattr(
+                    torch.cuda.CUDAGraph, "register_generator_state")):
+            raise ValueError(
+                "a captured step draws only from a CUDA generator that its "
+                "graph can register (CUDAGraph.register_generator_state)")
+        self.captures = 0
+        self.graph: graphs.Graph | None = None
+        self._inputs: list = []
+        self._batch: dict[str, torch.Tensor] = {}
+        self._scalars: dict[str, torch.Tensor] = {}
+        self._records: list = []
+
+    def __call__(self, params, opt_state, batch: dict, step: int):
+        if not self.compiled:
+            return self.fn(params, opt_state, batch, step)
+        host = self.opt.scalars(step)
+        if self.graph is None or not self._bind(params, opt_state, batch,
+                                                host):
+            return self._capture(params, opt_state, batch, step, host)
+        _, _, metrics = self.graph.replay()
+        moe.replay_records(self._records)
+        return params, opt_state, metrics
+
+    def pool_bytes(self) -> int | None:
+        """Bytes held in the captured graph's private memory pool."""
+        return self.graph.pool_bytes() if self.graph is not None else None
+
+    def _capture(self, params, opt_state, batch, step, host):
+        self.graph = None               # the old capture's pool goes first
+        bufs = {k: torch.empty_like(v, device=self.device).copy_(v)
+                for k, v in batch.items()}
+        scalars = device_scalars(host, self.device)
+        graph = graphs.Graph(
+            lambda: self.fn(params, opt_state, bufs, step, scalars=scalars),
+            self.device, generators=self.generators)
+        result = graph.warm_up()
+        self._records = moe.capture_records(graph.capture)
+        self.captures += 1
+        self.graph, self._batch, self._scalars = graph, bufs, scalars
+        self._inputs = tree_leaves(params) + tree_leaves(opt_state)
+        return result
+
+    def _bind(self, params, opt_state, batch, host) -> bool:
+        """Copy the call's batch and host scalars into the capture's
+        buffers; False where the call's tensors are not the captured
+        ones."""
+        if not graphs.bind(tree_leaves(params) + tree_leaves(opt_state),
+                           self._inputs, batch, self._batch):
+            return False
+        for k, v in host.items():
+            self._scalars[k].fill_(v)
+        return True
 
 
 class Trainer:
@@ -130,7 +286,12 @@ class Trainer:
     the reference's ``rules`` (``make_rules(mesh)`` unless given),
     ``param_shardings``, ``opt_shardings`` (each state leaf the sharding
     of the parameter of its shape and dtype) and ``batch_sharding``; every
-    leaf lies on the mesh's device."""
+    leaf lies on the mesh's device.
+
+    ``step`` is the :class:`TrainStep` (captured on the card) and
+    ``train_step`` what ``run`` calls, the same object: set
+    ``trainer.train_step = trainer.step.fn`` to train eagerly on the
+    card."""
 
     def __init__(self, cfg: ModelConfig, opt: Optimizer, *,
                  mesh: shd.Mesh | None = None, rules: dict | None = None,
@@ -163,7 +324,8 @@ class Trainer:
 
     def _build(self) -> None:
         model, opt = self.model, self.opt
-        self._step = make_train_step(model, opt)
+        self.step = TrainStep(model, opt)
+        self.train_step = self.step
         if self.mesh is None:
             self.param_shardings = None
             self.opt_shardings = None
@@ -222,7 +384,7 @@ class Trainer:
                      else stream.batch_at(state.step))
             batch = tree_map(lambda a: a.to(self.device), batch)
             with StepTimer(self.device) as t:
-                params, opt_state, metrics = self._step(
+                params, opt_state, metrics = self.train_step(
                     state.params, state.opt_state, batch, state.step)
                 names = sorted(metrics)
                 metrics = dict(zip(names, torch.stack(
